@@ -7,10 +7,13 @@ Phases, each printing one JSON line (the run fails on the first error):
 1. ``build``   — compile every Hopper kernel of ``imp_torch/csrc`` (one
    ``nvcc`` per source, all at once) and load it.
 2. ``kernel``  — hold each kernel against its plain PyTorch version on the
-   card, at the serving shapes and at the 10 000-patch bag envelope, and
-   time it beside its bound, the plain version and the one PyTorch call
-   that computes the same function (``library_ms``, a yardstick only).
-3. ``serve_flash`` — the main path: UMEML_GAN at the full width of
+   card and time it beside its bound, the plain version and, where one
+   exists, the one PyTorch call that computes the same function
+   (``library_ms``, a yardstick only): K1 (flash forward) at the serving
+   shapes and the 10 000-patch bag envelope; K4/K5 (modularity degree and
+   combined passes) at the training batch of ``UMEML_GAN.yaml`` and at a
+   batch with a fully masked slide.
+3. ``serve_flash`` — the serving path: UMEML_GAN at the full width of
    ``configs/Survival/UMEML_GAN.yaml`` (hidden 256, bags padded to
    10 000 x 512, 1 000 genes in 6 groups, exported batch 8) with
    ``TPU.ATTENTION=flash``, exported, loaded, run through
@@ -19,8 +22,18 @@ Phases, each printing one JSON line (the run fails on the first error):
    attention on the card, and the latency of ``predict`` at batch 8.
 4. ``serve_nystrom`` — the same at the default ``TPU.ATTENTION``, which
    launches no kernel; its logits are held against a CPU run.
+5. ``train``   — the training path: ``python -m imp_torch.tools.train``
+   (in process) with MBTRAIN at the full width of ``UMEML_GAN.yaml``,
+   batch 2, on 16 synthetic slides of 1 ... 10 000 patches, for 3 epochs
+   (plain, GAN, GAN + replacement) with the CCA epochs between them; K4
+   and K5 must launch once per main step and never in the CCA or eval
+   passes; a checkpoint must reload; the C-index must be reported.
+6. ``train_step`` — one main step with the kernels and with the plain
+   modularity on the card (loss, modular loss, gradients of ``p_proto``
+   and the omics encoder), then the step time at batch 8
+   (``UMEML_GAN_THROUGHPUT.yaml``).
 
-Then a ``kernels`` line (every ported kernel with its launches on the main
+Then a ``kernels`` line (every ported kernel with its launches on its
 path), the card's name and power limit from ``nvidia-smi``, and last
 ``{"ok": true, "device": {...}}``.  Weights are random, from a seed.
 Without a CUDA card the script exits 2 and prints no result.
@@ -61,63 +74,89 @@ KERNEL_INFO = {
         "source": "imp_torch/csrc/flash_fwd.cu",
         "replaces": "imp_tpu/ops/flash_attention.py:46",
     },
+    "modularity_deg": {
+        "route": "cuda",
+        "source": "imp_torch/csrc/modularity.cu",
+        "replaces": "imp_tpu/ops/modularity.py:261",
+    },
+    "modularity_combined": {
+        "route": "cuda",
+        "source": "imp_torch/csrc/modularity.cu",
+        "replaces": "imp_tpu/ops/modularity.py:135",
+    },
 }
 
+#: configs/Survival/UMEML_GAN.yaml as typed values (the card's host needs
+#: no YAML parser)
+FLAGSHIP = {
+    "DATASET.NAME": "TCGA_Glioma_S_UMEML",
+    "DATASET.FEATURE_NAME": "features_clip_vit_b16",
+    "DATASET.TYPE": "Survival",
+    "DATASET.SURVIVAL_ENDPOINT": "DSS",
+    "DATASET.MODALITY": "pathology",
+    "DATASET.BAG_PAD": 10000,
+    "DATASET.PATH.FEATURE": "conch",
+    "DATASET.PATH.SAMPLE": False,
+    "DATASET.PATH.NUM": 4096,
+    "DATASET.PATH.DIM": 512,
+    "DATASET.OMIC.TYPE": "all",
+    "DATASET.OMIC.PATHWAY": "combine",
+    "DATASET.OMIC.DIM": 1000,
+    "TASK.NAME": "Survival",
+    "TASK.LOSS": "nllsurvloss_new",
+    "DATALOADER.TRAIN.BATCH_SIZE": 2,
+    "DATALOADER.TEST.BATCH_SIZE": 2,
+    "DATALOADER.NUM_WORKERS": 8,
+    "LOSS.ALPHA": 0.5,
+    "LOSS.REDUCTION": "mean",
+    "OPTIM.NAME": "adam",
+    "OPTIM.LR": 2e-4,
+    "OPTIM.WEIGHT_DECAY": 1e-4,
+    "OPTIM.STEPSIZE": (4000,),
+    "OPTIM.MAX_EPOCH": 10,
+    "OPTIM.ADAM_BETA1": 0.9,
+    "OPTIM.ADAM_BETA2": 0.999,
+    "OPTIM.MOMENTUM": 0.9,
+    "OPTIM.LR_SCHEDULER": "cosine",
+    "OPTIM.WARMUP_EPOCH": 1,
+    "OPTIM.WARMUP_TYPE": "linear",
+    "OPTIM.WARMUP_CONS_LR": 1e-5,
+    "TRAIN.PRINT_FREQ": 100,
+    "TEST.EVALUATOR": "Survival_UMEML",
+    "MODEL.NAME": "umeml_gan",
+    "MODEL.FUSION": "concat",
+    "MODEL.SIZE": "small",
+    "MODEL.DROPOUT": 0.25,
+    "MODEL.PROJECT_DIM": 256,
+    "MODEL.HIDDEN_DIM": 256,
+    "MODEL.NUM_CLUSTERS": 10,
+    "MODEL.UMEML.PROTOTYPES": 6,
+    "MODEL.UMEML.REGISTERS": 3,
+    "MODEL.UMEML.ALPHA": 5.0,
+    "TRAINER.PREC": "fp32",
+}
+#: what configs/Survival/UMEML_GAN_THROUGHPUT.yaml changes
+THROUGHPUT = {"DATALOADER.TRAIN.BATCH_SIZE": 8, "DATALOADER.TEST.BATCH_SIZE": 8, "OPTIM.LR": 8e-4}
 
-def flagship_cfg(attention: str = "auto"):
-    """The values of configs/Survival/UMEML_GAN.yaml, set as typed Python
-    values (the serving host needs no YAML parser)."""
+
+def flagship_cfg(attention: str = "auto", **overrides):
+    """UMEML_GAN.yaml's config (plus ``overrides``, dotted keys), frozen."""
     from imp_torch.config import get_cfg_default
 
     cfg = get_cfg_default()
-    cfg.DATASET.NAME = "TCGA_Glioma_S_UMEML"
-    cfg.DATASET.FEATURE_NAME = "features_clip_vit_b16"
-    cfg.DATASET.TYPE = "Survival"
-    cfg.DATASET.SURVIVAL_ENDPOINT = "DSS"
-    cfg.DATASET.MODALITY = "pathology"
-    cfg.DATASET.BAG_PAD = 10000
-    cfg.DATASET.PATH.FEATURE = "conch"
-    cfg.DATASET.PATH.SAMPLE = False
-    cfg.DATASET.PATH.NUM = 4096
-    cfg.DATASET.PATH.DIM = 512
-    cfg.DATASET.OMIC.TYPE = "all"
-    cfg.DATASET.OMIC.PATHWAY = "combine"
-    cfg.DATASET.OMIC.DIM = 1000
-    cfg.TASK.NAME = "Survival"
-    cfg.TASK.LOSS = "nllsurvloss_new"
-    cfg.DATALOADER.TRAIN.BATCH_SIZE = 2
-    cfg.DATALOADER.TEST.BATCH_SIZE = 2
-    cfg.DATALOADER.NUM_WORKERS = 8
-    cfg.LOSS.ALPHA = 0.5
-    cfg.LOSS.REDUCTION = "mean"
-    cfg.OPTIM.NAME = "adam"
-    cfg.OPTIM.LR = 2e-4
-    cfg.OPTIM.WEIGHT_DECAY = 1e-4
-    cfg.OPTIM.STEPSIZE = (4000,)
-    cfg.OPTIM.MAX_EPOCH = 10
-    cfg.OPTIM.ADAM_BETA1 = 0.9
-    cfg.OPTIM.ADAM_BETA2 = 0.999
-    cfg.OPTIM.MOMENTUM = 0.9
-    cfg.OPTIM.LR_SCHEDULER = "cosine"
-    cfg.OPTIM.WARMUP_EPOCH = 1
-    cfg.OPTIM.WARMUP_TYPE = "linear"
-    cfg.OPTIM.WARMUP_CONS_LR = 1e-5
-    cfg.TRAIN.PRINT_FREQ = 100
-    cfg.TEST.EVALUATOR = "Survival_UMEML"
-    cfg.MODEL.NAME = "umeml_gan"
-    cfg.MODEL.FUSION = "concat"
-    cfg.MODEL.SIZE = "small"
-    cfg.MODEL.DROPOUT = 0.25
-    cfg.MODEL.PROJECT_DIM = 256
-    cfg.MODEL.HIDDEN_DIM = 256
-    cfg.MODEL.NUM_CLUSTERS = 10
-    cfg.MODEL.UMEML.PROTOTYPES = 6
-    cfg.MODEL.UMEML.REGISTERS = 3
-    cfg.MODEL.UMEML.ALPHA = 5.0
-    cfg.TRAINER.PREC = "fp32"
-    cfg.TPU.ATTENTION = attention
+    for key, value in {**FLAGSHIP, "TPU.ATTENTION": attention, **overrides}.items():
+        *path, leaf = key.split(".")
+        node = cfg
+        for part in path:
+            node = node[part]
+        setattr(node, leaf, value)
     cfg.freeze()
     return cfg
+
+
+def flagship_opts(**overrides) -> list:
+    """UMEML_GAN.yaml's values as the ``KEY VALUE`` list of the train CLI."""
+    return [str(x) for k, v in {**FLAGSHIP, **overrides}.items() for x in (k, v)]
 
 
 def emit(obj) -> None:
@@ -209,7 +248,12 @@ def flash_bound_ms(b, h, n, d, valid) -> tuple:
     v, bias read once and O, lse written once."""
     keys = b * n if valid is None else sum(valid)
     ops = 4 * h * n * keys * d + h * n * keys  # FMA = 2 FLOPs; one op per exp
-    nbytes = 4 * (4 * b * h * n * d + b * n + b * h * n)
+    return bound_ms(ops, 4 * (4 * b * h * n * d + b * n + b * h * n))
+
+
+def bound_ms(ops: float, nbytes: float) -> tuple:
+    """The larger of the operations at the fp32 peak and the bytes at the
+    memory rate, in ms, and which one it is."""
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -267,6 +311,122 @@ def phase_kernel(card: str):
                 f"flash_fwd disagrees with its plain version at {name}: {row}")
         rows[name] = row
         del q, k, v, o, lse, o_ref, lse_ref
+        torch.cuda.empty_cache()
+    kernels.reset_launches()  # the comparison launches do not count
+    return rows
+
+
+MOD_SHAPES = [
+    # name, B, N, valid lengths, prototype counts (p_proto, h_omic)
+    ("train_b2_n10000", 2, 10000, (10000, 7313), (6, 7)),  # UMEML_GAN.yaml's training batch
+    ("masked_b3_n10000", 3, 10000, (10000, 7313, 0), (6, 7)),  # one slide fully masked
+]
+MOD_MAIN_SHAPE = "train_b2_n10000"
+MOD_TEMP = 0.1
+HIDDEN = 256
+
+
+def modularity_bounds(b, n, d, lengths, p_counts) -> dict:
+    """The least time for each pass over this batch, counted over the upper
+    triangle of (i, j) pairs within each slide's valid length, as the TPU
+    kernels sweep it: a d-deep dot product (2d FLOPs) plus the ReLU and the
+    sum per pair for K4; for K5 also the scaling by 1/e (3) and, per set of
+    P prototypes, P products, P - 1 compares, the tanh, s1, q, the weight
+    and the dC select-adds (2P + 10).  Bytes: x read once, outputs once."""
+    pairs = sum(m * (m + 1) // 2 for m in lengths)
+    x_bytes = 4 * b * n * d
+    c_bytes = 4 * b * n * sum(p_counts)
+    return {
+        "modularity_deg": bound_ms(pairs * (2 * d + 2), x_bytes + 4 * b * n),
+        "modularity_combined": bound_ms(
+            pairs * (2 * d + 3 + sum(2 * p + 10 for p in p_counts)),
+            x_bytes + 2 * c_bytes + 4 * b * n + 4 * b,
+        ),
+    }
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want| (norm-wise relative error)."""
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def phase_modularity(card):
+    """K4 and K5 against their plain versions on the card, and timed."""
+    import torch
+
+    from imp_torch import kernels
+    from imp_torch.ops import modularity as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's products in fp32
+    rows = {}
+    for name, b, n, lengths, p_counts in MOD_SHAPES:
+        g = torch.Generator(device=DEVICE).manual_seed(SEED)
+        x = torch.randn(b, n, HIDDEN, device=DEVICE, generator=g)
+        valid = torch.arange(n, device=DEVICE)[None, :] < torch.tensor(lengths, device=DEVICE)[:, None]
+        protos = [torch.randn(b, p, HIDDEN, device=DEVICE, generator=g) for p in p_counts]
+        with torch.no_grad():
+            norm_x, cs = M._prepare(protos, x, valid)
+            lens = M._valid_lengths(norm_x)
+            deg = M.deg_cuda(norm_x, lens)
+            deg_ref = M.degree_reference(norm_x)
+            e = deg_ref.sum(dim=1).clamp_min(1e-12)
+            inv_e = (1.0 / e).contiguous()
+            s1, q, dcs = M.combined_cuda(norm_x, cs, deg_ref, inv_e, MOD_TEMP, lens)
+            s1_ref, q_ref, dcs_ref = M.combined_reference(norm_x, cs, deg_ref, inv_e, MOD_TEMP)
+            torch.cuda.synchronize()
+            # traces (s1 - q/e)/e cancel: their error is read against the
+            # size of the two terms
+            scale = torch.maximum((s1_ref / e).abs(), (q_ref / e / e).abs()).max()
+            trace_abs = ((s1 - q / e) / e - (s1_ref - q_ref / e) / e).abs().max()
+            trace_err = (trace_abs / scale).item()
+            errs = {
+                "modularity_deg": {"deg_rel": rel_err(deg, deg_ref),
+                                   "max_abs_err": (deg - deg_ref).abs().max().item()},
+                "modularity_combined": {
+                    "s1_rel": rel_err(s1, s1_ref), "q_rel": rel_err(q, q_ref),
+                    "trace_rel": trace_err,
+                    "dC_rel": max(rel_err(a, r) for a, r in zip(dcs, dcs_ref)),
+                    # what reaches the loss: the traces and dC (s1 and q
+                    # are sums of ~1e8 terms; their error is read relative)
+                    "max_abs_err": max([trace_abs.item()]
+                                       + [(a - r).abs().max().item() for a, r in zip(dcs, dcs_ref)]),
+                },
+            }
+            finite = bool(torch.isfinite(deg).all() and all(torch.isfinite(d).all() for d in dcs))
+            masked_zero = all(deg[i].abs().max().item() == 0.0 and
+                              all(d[i].abs().max().item() == 0.0 for d in dcs)
+                              for i, m in enumerate(lengths) if m == 0)
+            times = {
+                "modularity_deg": (
+                    cuda_ms(lambda: M.deg_cuda(norm_x, lens), 10),
+                    device_ms(lambda: M.deg_cuda(norm_x, lens), "deg_kernel", iters=5),
+                    cuda_ms(lambda: M.degree_reference(norm_x), 3, warmup=1),
+                ),
+                "modularity_combined": (
+                    cuda_ms(lambda: M.combined_cuda(norm_x, cs, deg_ref, inv_e, MOD_TEMP, lens), 10),
+                    device_ms(lambda: M.combined_cuda(norm_x, cs, deg_ref, inv_e, MOD_TEMP, lens),
+                              "combined_kernel", iters=5),
+                    cuda_ms(lambda: M.combined_reference(norm_x, cs, deg_ref, inv_e, MOD_TEMP), 3, warmup=1),
+                ),
+            }
+        bounds = modularity_bounds(b, n, HIDDEN, lengths, p_counts)
+        for kname in ("modularity_deg", "modularity_combined"):
+            ms, dev_ms, plain_ms = times[kname]
+            bound, bound_by = bounds[kname]
+            row = {
+                "phase": "kernel", "kernel": kname, "shape": name, "card": card,
+                "B": b, "N": n, "D": HIDDEN, "valid": lengths, "P": p_counts,
+                **errs[kname], "tol_rel": KERNEL_TOL, "finite": finite,
+                "masked_slide_zero": masked_zero, "ms": ms, "kernel_device_ms": dev_ms,
+                "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
+                "share_of_bound": bound / ms,
+            }
+            emit(row)
+            rels = [v for k, v in errs[kname].items() if k.endswith("_rel")]
+            require(finite and masked_zero and max(rels) <= KERNEL_TOL,
+                    f"{kname} disagrees with its plain version at {name}: {row}")
+            rows[(kname, name)] = row
+        del x, norm_x, cs, deg, deg_ref, dcs, dcs_ref
         torch.cuda.empty_cache()
     kernels.reset_launches()  # the comparison launches do not count
     return rows
@@ -520,6 +680,264 @@ def phase_serve(attention: str, card: str, tmp: str):
     return row, counts
 
 
+# ---------------------------------------------------------------------------
+# phases 5-6: training
+# ---------------------------------------------------------------------------
+
+#: patches per synthetic training slide (index = the slide's number)
+TRAIN_LENGTHS = (10000, 7313, 1, 4096, 9999, 300, 2048, 517, 10000, 64, 1500, 777,
+                 5000, 8192, 12, 3000)
+TRAIN_EPOCHS = 3
+STEP_TOL = 1e-4  # kernel vs plain modularity inside one train step, fp32
+STEP_TIMED = 12  # timed steps at batch 8, after warm-up
+
+
+def make_train_tree(root: str) -> str:
+    """The synthetic tree's CSVs (labels, 1 000 genes in six 166-gene
+    signature groups, like the even fallback); bags come from
+    :func:`seeded_bags`."""
+    from imp_torch.data import synthetic
+
+    return synthetic.materialize(root, num_slides=len(TRAIN_LENGTHS), bag_min=1, bag_max=1,
+                                 feat_dim=512, num_genes=1000, group_size=166, seed=SEED,
+                                 bags=False)
+
+
+@contextlib.contextmanager
+def seeded_bags():
+    """The port's SlideDataset with only its .h5 reader replaced: slide i's
+    bag is TRAIN_LENGTHS[i] patches of seeded normal features; the
+    molecular CSV is read by the port as usual."""
+    import warnings
+
+    import imp_torch.data.manager as manager
+
+    base = manager.SlideDataset
+
+    class SeededBagDataset(base):
+        def _load_raw(self, idx):
+            item = self.data_source[idx]
+            i = int(item.patientid.split("-")[1])
+            rng = np.random.default_rng(SEED + i)
+            bag = rng.standard_normal((TRAIN_LENGTHS[i], self.cfg.DATASET.PATH.DIM), dtype=np.float32)
+            return bag, manager.read_molecular(item.molpath)
+
+    manager.SlideDataset = SeededBagDataset
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="No file found")  # no .h5 on disk
+            yield
+    finally:
+        manager.SlideDataset = base
+
+
+@contextlib.contextmanager
+def audited_trainer(record: list):
+    """Record the kernel launches (and the metrics) of every MBTRAIN main
+    step, CCA epoch and evaluation."""
+    from imp_torch import kernels
+    from imp_torch.engine.mbtrain import MBTRAIN
+
+    saved = {n: getattr(MBTRAIN, n) for n in ("train_step", "run_epoch_cca", "test")}
+
+    def audited(name):
+        fn = saved[name]
+
+        def wrapper(self, *args, **kw):
+            before = kernels.launches()
+            out = fn(self, *args, **kw)
+            after = kernels.launches()
+            record.append((name, {k: after[k] - before[k] for k in after},
+                           out if name == "train_step" else None))
+            return out
+
+        return wrapper
+
+    for n in saved:
+        setattr(MBTRAIN, n, audited(n))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(MBTRAIN, n, fn)
+
+
+def phase_train(card: str, root: str, out: str):
+    import io
+
+    import torch
+
+    from imp_torch import kernels
+    from imp_torch.models import build_model, survival_num_classes
+    from imp_torch.tools.train import run
+
+    argv = ["--root", root, "--seed", "1", "--trainer", "MBTRAIN", "--output-dir", out,
+            "--device", DEVICE] + flagship_opts(**{
+                "OPTIM.MAX_EPOCH": TRAIN_EPOCHS, "TRAIN.CURRICULUM.GAN_START_EPOCH": 1,
+                "TRAIN.CURRICULUM.REPLACE_START_EPOCH": 2, "TPU.ATTENTION": "auto",
+            })
+    record = []
+    console = io.StringIO()  # the trainer's log goes to out/log.txt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with seeded_bags(), audited_trainer(record), contextlib.redirect_stdout(console):
+        # ---- the main path: counts at 0 just before, read just after ------
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        result = run(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = kernels.launches()
+    with open(os.path.join(out, "log.txt")) as f:
+        log = f.read()
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke_train_log.txt"), "w") as f:
+        f.write(log)
+
+    steps = [r for r in record if r[0] == "train_step"]
+    others = [r for r in record if r[0] != "train_step"]
+    per_step_ok = all(d["modularity_deg"] == 1 and d["modularity_combined"] == 1 and d["flash_fwd"] == 0
+                      for _, d, _ in steps)
+    others_zero = all(not any(d.values()) for _, d, _ in others)
+    metrics = [{k: float(v) for k, v in m.items()} for _, _, m in steps]
+    finite = all(np.isfinite(list(m.values())).all() for m in metrics)
+    gan_steps = sum("loss_gen" in m for m in metrics)
+    cindex = [float(line.split(":")[1].strip().rstrip("%")) for line in log.splitlines()
+              if line.startswith("* cindex:")]
+    # the last checkpoint reloads into a fresh model, strictly
+    mdir = os.path.join(out, "model")
+    with open(os.path.join(mdir, "checkpoint")) as f:
+        ckpt_name = f.read().strip()
+    state = torch.load(os.path.join(mdir, ckpt_name), map_location=DEVICE, weights_only=True)
+    cfg = flagship_cfg()
+    from imp_torch.serving import even_gene_groups
+
+    fresh = build_model(cfg.MODEL.NAME, cfg=cfg, num_classes=survival_num_classes(cfg.TASK.NAME, 0),
+                        gene_group_indexes=even_gene_groups(1000, 6), device=DEVICE)
+    fresh.load_state_dict(state["model"], strict=True)
+    row = {
+        "phase": "train", "card": card, "entry": "python -m imp_torch.tools.train",
+        "slides": len(TRAIN_LENGTHS), "bag_lengths": list(TRAIN_LENGTHS),
+        "batch": FLAGSHIP["DATALOADER.TRAIN.BATCH_SIZE"], "bag_pad": FLAGSHIP["DATASET.BAG_PAD"],
+        "hidden": FLAGSHIP["MODEL.HIDDEN_DIM"], "genes": 1000, "epochs": TRAIN_EPOCHS,
+        "main_steps": len(steps), "gan_steps": gan_steps,
+        "cca_epochs": sum(r[0] == "run_epoch_cca" for r in others),
+        "evaluations": sum(r[0] == "test" for r in others),
+        "launches": counts, "launches_once_per_main_step": per_step_ok,
+        "launches_outside_main_steps": 0 if others_zero else
+        [r[:2] for r in others if any(r[1].values())],
+        "losses_finite": finite, "last_loss": metrics[-1] if metrics else None,
+        "cindex_lines": cindex, "result_cindex": result, "checkpoint": ckpt_name,
+        "checkpoint_epoch": int(state["epoch"]), "seconds": seconds,
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    emit(row)
+    require(len(steps) > 0 and per_step_ok and others_zero, f"K4/K5 launches off the main steps: {row}")
+    require(counts["modularity_deg"] == counts["modularity_combined"] == len(steps), row)
+    require(finite and gan_steps > 0 and row["cca_epochs"] == TRAIN_EPOCHS - 1, row)
+    require(len(cindex) >= TRAIN_EPOCHS + 1 and result is not None, "no C-index reported")
+    require(int(state["epoch"]) == TRAIN_EPOCHS, f"last checkpoint is epoch {state['epoch']}")
+    return row, counts
+
+
+@contextlib.contextmanager
+def plain_modularity():
+    """Route the modularity passes to their plain versions on the card."""
+    import imp_torch.ops.modularity as M
+
+    saved = M.modularity_passes
+    M.modularity_passes = M.modularity_passes_reference
+    try:
+        yield
+    finally:
+        M.modularity_passes = saved
+
+
+def phase_train_step(card: str, root: str, out: str):
+    import torch
+
+    from imp_torch import kernels
+    from imp_torch.engine import build_trainer
+
+    def trainer_for(**overrides):
+        cfg = flagship_cfg(**{"DATASET.ROOT": root, "OUTPUT_DIR": out, "VERBOSE": False,
+                              "SEED": 1, "DATASET.FOLD": 1, "TRAINER.NAME": "MBTRAIN", **overrides})
+        with seeded_bags():
+            trainer = build_trainer(cfg, device=DEVICE)
+            batch = next(iter(trainer.train_loader))
+        return trainer, batch, trainer._device_batch(batch)
+
+    # ---- one main step, kernels vs plain modularity, same dropout draws -----
+    trainer, batch, db = trainer_for()
+    model, g = trainer.model, trainer.generator
+    state = g.get_state()
+    params = [model.p_proto] + list(model.omic_encoder.parameters())
+
+    def loss_and_grads():
+        g.set_state(state)
+        enc = model.encode(db, train=True, generator=g)
+        out_ = model.finish(enc, db, train=True, replace_ratio=0.0, generator=g)
+        loss = trainer.task_loss(out_["logits"], db) + out_["modular_loss"] + out_["loss_kd"]
+        grads = torch.autograd.grad(loss, params)
+        return loss.detach(), out_["modular_loss"].detach(), grads
+
+    kernels.reset_launches()
+    loss_k, mod_k, grads_k = loss_and_grads()
+    torch.cuda.synchronize()
+    counted = kernels.launches()
+    with plain_modularity():
+        loss_p, mod_p, grads_p = loss_and_grads()
+    check = {
+        "loss_rel": rel_err(loss_k, loss_p), "modular_loss_rel": rel_err(mod_k, mod_p),
+        "grad_p_proto_rel": rel_err(grads_k[0], grads_p[0]),
+        "grad_omic_encoder_rel": max(rel_err(a, b) for a, b in zip(grads_k[1:], grads_p[1:])),
+        "loss": loss_k.item(), "modular_loss": mod_k.item(), "tol_rel": STEP_TOL,
+    }
+    require(counted["modularity_deg"] == 1 and counted["modularity_combined"] == 1, counted)
+    require(all(v <= STEP_TOL for k, v in check.items() if k.endswith("_rel")),
+            f"train step through the kernels vs the plain modularity: {check}")
+    del trainer, model, db, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # ---- the step time at batch 8 (UMEML_GAN_THROUGHPUT.yaml) ---------------
+    trainer, batch, db = trainer_for(**THROUGHPUT)
+    b = len(batch["patient_id"])
+
+    def step():
+        return trainer.train_step(db, train_gan=True, replace_ratio=0.25)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(STEP_TIMED):
+        t0 = time.perf_counter()
+        metrics = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    events = profiled(step, 3)
+    busy = sum(e.self_device_time_total for e in events or ()) / 3 / 1e3 if events else None
+    mod_dev = (sum(e.self_device_time_total for e in events or ()
+                   if "deg_kernel" in e.key or "combined_kernel" in e.key) / 3 / 1e3) if events else None
+    median = float(np.median(times)) * 1e3
+    row = {
+        "phase": "train_step", "card": card, "check_b2": check,
+        "batch": b, "bag_lengths": [int(x) for x in batch["img_mask"].sum(axis=1)],
+        "bag_pad": trainer.cfg.DATASET.BAG_PAD, "hidden": trainer.cfg.MODEL.HIDDEN_DIM,
+        "gan": True, "replace_ratio": 0.25,
+        "step_ms_median": median, "step_ms_p90": float(np.percentile(times, 90)) * 1e3,
+        "slides_per_s": b / (median / 1e3), "timed_steps": STEP_TIMED,
+        "modularity_device_ms_per_step": mod_dev, "device_busy_ms_per_step": busy,
+        "device_idle_share": None if busy is None else 1.0 - busy / median,
+        "peak_device_gib": peak, "loss_finite": bool(np.isfinite(float(metrics["loss"]))),
+    }
+    emit(row)
+    require(row["loss_finite"], row)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -531,39 +949,55 @@ def main() -> int:
     card = card_line()
     t0 = time.perf_counter()
     report = kernels.build()
-    for name in report:
+    for name in kernels.KERNELS:
         kernels.load(name)
     emit({
         "phase": "build", "seconds": time.perf_counter() - t0,
-        "kernels": {
-            n: {"seconds": r["seconds"],
-                "ptxas": [l.strip() for l in r["ptxas"].splitlines()
-                          if "registers" in l or "spill" in l]}
-            for n, r in report.items()
+        "sources": {
+            src: {"seconds": r["seconds"],
+                  "ptxas": [l.strip() for l in r["ptxas"].splitlines()
+                            if "registers" in l or "spill" in l or "Compiling entry" in l]}
+            for src, r in report.items()
         },
         "torch": torch.__version__, "cuda": torch.version.cuda,
     })
 
     krows = phase_kernel(card)
+    mrows = phase_modularity(card)
     with tempfile.TemporaryDirectory(prefix="imp_torch_smoke_") as tmp:
         _, counts = phase_serve("flash", card, tmp)
         phase_serve("auto", card, tmp)
+        root = make_train_tree(os.path.join(tmp, "tree"))
+        _, train_counts = phase_train(card, root, os.path.join(tmp, "train"))
+        phase_train_step(card, root, os.path.join(tmp, "train_step"))
 
     def per_forward(key):
         return sum(krows[s][key] * n for s, n in FLASH_PER_FORWARD.items())
 
-    bound = per_forward("bound_ms")
-    emit({"kernels": [{
-        "name": "flash_fwd", **KERNEL_INFO["flash_fwd"],
-        "launches": counts["flash_fwd"],
-        "max_abs_err": max(max(r["max_abs_err_o"], r["max_abs_err_lse"]) for r in krows.values()),
-        # one serving forward: 4 launches at B=8,N=7 and 2 at B=16,N=14
-        "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
-        "bound_ms": bound,
-        "bound_by": "bytes" if all(krows[s]["bound_by"] == "bytes" for s in FLASH_PER_FORWARD)
-        else "operations",
-        "library_ms": per_forward("library_ms"),
-    }]})
+    def modularity_entry(name):
+        main = mrows[(name, MOD_MAIN_SHAPE)]
+        return {
+            "name": name, **KERNEL_INFO[name], "launches": train_counts[name],
+            "max_abs_err": max(r["max_abs_err"] for (k, _), r in mrows.items() if k == name),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+        }
+
+    emit({"kernels": [
+        {
+            "name": "flash_fwd", **KERNEL_INFO["flash_fwd"],
+            "launches": counts["flash_fwd"],
+            "max_abs_err": max(max(r["max_abs_err_o"], r["max_abs_err_lse"]) for r in krows.values()),
+            # one serving forward: 4 launches at B=8,N=7 and 2 at B=16,N=14
+            "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
+            "bound_ms": per_forward("bound_ms"),
+            "bound_by": "bytes" if all(krows[s]["bound_by"] == "bytes" for s in FLASH_PER_FORWARD)
+            else "operations",
+            "library_ms": per_forward("library_ms"),
+        },
+        modularity_entry("modularity_deg"),
+        modularity_entry("modularity_combined"),
+    ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

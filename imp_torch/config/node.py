@@ -9,7 +9,9 @@ relies on — a key whose default is ``None`` may be replaced by any type
 
 PyYAML is imported only by the three functions that parse or emit YAML
 (``merge_from_file``, ``dump`` and ``_decode_value``): a serving host that
-sets typed values and stores the config as JSON (``to_dict``) needs none.
+sets typed values and stores the config as JSON (``to_dict``) needs none,
+and without it ``merge_from_list`` reads command-line values as Python
+literals.
 """
 
 from __future__ import annotations
@@ -143,8 +145,17 @@ class CfgNode(dict):
 
 
 def _decode_value(value: str) -> Any:
-    import yaml
+    """A command-line value: parsed as YAML, as the JAX package does; on a
+    host without PyYAML, as a Python literal (yacs' rule), else the string."""
+    try:
+        import yaml
+    except ImportError:
+        import ast
 
+        try:
+            return ast.literal_eval(value)
+        except (ValueError, SyntaxError):
+            return value
     try:
         return yaml.safe_load(value)
     except yaml.YAMLError:

@@ -4,7 +4,8 @@ Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  A library is built at first use, named by a hash of its source
 and flags, under ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``); a later run with the same source loads it again.
+``.gitignore``); a later run with the same source loads it again.  Several
+kernels may share one source (K4 and K5 live in ``modularity.cu``).
 :func:`build` starts one ``nvcc`` per source, all at once.
 
 Each wrapper calls :func:`count_launch` where it launches its kernel and
@@ -33,13 +34,21 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: kernel name -> (source under csrc/, {C function: argtypes}); every C
 #: function returns the launch's cudaError_t as an int
 KERNELS = {
     "flash_fwd": (
         "flash_fwd.cu",
         {"imp_flash_fwd_f32": [_P] * 6 + [_I] * 5 + [_P]},
+    ),
+    "modularity_deg": (
+        "modularity.cu",
+        {"imp_modularity_deg_f32": [_P] * 3 + [_I] * 3 + [_P]},
+    ),
+    "modularity_combined": (
+        "modularity.cu",
+        {"imp_modularity_combined_f32": [_P] * 10 + [_I] * 6 + [_F, _P]},
     ),
 }
 
@@ -83,43 +92,44 @@ def library_path(name: str) -> Path:
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
-    """Compile the named kernels (all by default) that are not built yet,
-    one ``nvcc`` each, all started together.  Returns, per kernel, the
-    build seconds (0 when it was built already) and the ``ptxas`` report
-    (registers, shared memory, spills).  Raises with the compiler's output
-    if any build fails."""
+    """Compile the sources of the named kernels (all by default) that are
+    not built yet, one ``nvcc`` per source, all started together.  Returns,
+    per source, the build seconds (0 when it was built already) and the
+    ``ptxas`` report (registers, shared memory, spills).  Raises with the
+    compiler's output if any build fails."""
     names = list(KERNELS if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     report: Dict[str, dict] = {}
     jobs = {}
-    for name in names:
+    sources = {KERNELS[n][0]: n for n in names}  # one kernel stands for its source
+    for src, name in sources.items():
         out = library_path(name)
         log = out.with_suffix(".log")
         if out.is_file():
-            report[name] = {
+            report[src] = {
                 "seconds": 0.0,
                 "ptxas": log.read_text() if log.is_file() else "",
             }
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
-        jobs[name] = (
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        jobs[src] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             ),
             tmp, out, log, time.perf_counter(),
         )
     failed = []
-    for name, (proc, tmp, out, log, t0) in jobs.items():
+    for src, (proc, tmp, out, log, t0) in jobs.items():
         text, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{text}")
+            failed.append(f"{src}: nvcc exit {proc.returncode}\n{text}")
             tmp.unlink(missing_ok=True)
             continue
         log.write_text(text)
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-        report[name] = {"seconds": seconds, "ptxas": text}
+        report[src] = {"seconds": seconds, "ptxas": text}
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return report

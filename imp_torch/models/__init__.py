@@ -62,7 +62,9 @@ def build_umeml_gan(
             hidden=cfg.MODEL.HIDDEN_DIM,
             n_proto=cfg.MODEL.UMEML.PROTOTYPES,
             n_reg=cfg.MODEL.UMEML.REGISTERS,
+            dropout_rate=float(cfg.MODEL.DROPOUT),
             fusion=cfg.MODEL.FUSION,
+            lambda_cyc=float(cfg.MODEL.UMEML.LAMBDA_CYC),
             topk=cfg.MODEL.UMEML.TOPK,
             kd_t=float(cfg.MODEL.UMEML.KD_T),
             attention=resolve_attention(cfg.TPU.ATTENTION),

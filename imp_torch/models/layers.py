@@ -79,8 +79,13 @@ class Block(nn.Module):
         super().__init__()
         self.attn = TransLayer(dim=dim, impl=impl)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
-        return self.attn(x, mask=mask)
+    def forward(
+        self,
+        x: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        return self.attn(x, mask=mask, generator=generator)
 
 
 class BottleneckAttentionBlock(nn.Module):
@@ -114,7 +119,10 @@ class BottleneckAttentionBlock(nn.Module):
         self.bottle_tokens.uniform_(0.0, 1.0, generator=generator)
 
     def forward(
-        self, x_path: torch.Tensor, x_omic: torch.Tensor
+        self,
+        x_path: torch.Tensor,
+        x_omic: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         b, path_len, d = x_path.shape
         bottle_b = self.bottle_tokens.expand(b, -1, -1)
@@ -130,7 +138,7 @@ class BottleneckAttentionBlock(nn.Module):
             remaining_o = remove_indices_keep_order(x_omic, cols)
             x = torch.cat([ks, remaining_p, bottle_b, remaining_o], dim=1)
         for enc in self.encoders:
-            x = enc(x)
+            x = enc(x, generator=generator)
         t = path_len + self.n_reg
         return x[:, :1], x[:, 1:path_len], x[:, t : t + 1], x[:, t + 1 :]
 
@@ -153,7 +161,7 @@ class Generator(nn.Module):
 
 class Discriminator(nn.Module):
     """flatten -> 256 -> ReLU -> 1 -> Sigmoid (reference ``umeml_gan.py:48-62``).
-    Unused by the eval forward; built so the state dict is complete."""
+    Trained by the GAN phase of MBTRAIN; unused by the eval forward."""
 
     def __init__(self, in_features: int):
         super().__init__()

@@ -2,16 +2,22 @@
 the PyTorch counterpart of ``imp_tpu/models/umeml_gan.py`` (reference
 ``medmm/modeling/models/umeml_gan.py:232-706``).
 
-This slice serves the model: :meth:`UMEML_GAN.encode`, :meth:`finish` and
-:meth:`head` at ``train=False``.  The GAN losses, ``train=True`` (dropout,
-progressive replacement, the modularity loss) and bilinear fusion raise
-``NotImplementedError`` pointing at the training slice (ROADMAP §A2).
+Serving runs :meth:`UMEML_GAN.encode`, :meth:`finish` and :meth:`head` at
+``train=False``; MBTRAIN runs them at ``train=True`` with a
+``torch.Generator`` that draws the dropout masks and the progressive
+replacement, plus the GAN losses :meth:`gen_loss`, :meth:`dis_p_loss` and
+:meth:`dis_o_loss`, which the trainer differentiates with respect to the
+generator and discriminator parameters.  ``finish(train=True)`` adds the
+modularity loss through :func:`imp_torch.ops.modularity.compute_modularity_pair`
+(kernels K4 and K5 on the card).
 
 The JAX package's module globals are constructor arguments here, validated
 where they are used.  Only their defaults are ported: ``head_fused=True``
 (the head's two bottleneck passes as one 2B-row call), ``stacked_pairs=False``
-(twin decoder modules) and ``bag_dtype=None`` (all-fp32 bag activations).
-``attention`` replaces the process-global ``TPU.ATTENTION`` default.
+(twin decoder modules) and ``bag_dtype=None`` (all-fp32 bag activations);
+the others, and bilinear fusion, raise ``NotImplementedError`` naming their
+ROADMAP item.  ``attention`` replaces the process-global ``TPU.ATTENTION``
+default.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..losses.survival import kd_loss
-from ..ops.attention import ATTENTION_IMPLS, TransLayer, init_linear_
+from ..ops.attention import ATTENTION_IMPLS, TransLayer, dropout, init_linear_
+from ..ops.modularity import compute_modularity_pair
 from .layers import (
     Block,
     BottleneckAttentionBlock,
@@ -36,7 +43,19 @@ from .layers import (
     transform_importance_to_half_one_point_five,
 )
 
-_DEFERRED = "not ported yet: see ROADMAP.md §A2 (the training slice)"
+_DEFERRED = "not ported yet: see ROADMAP.md §A (the rest of the UMEML_GAN options)"
+
+
+def _bce_with_logits_vs_ones(z: torch.Tensor) -> torch.Tensor:
+    """BCEWithLogits(z, 1) = softplus(-z).  The reference applies it to the
+    discriminator's *sigmoid output* (``adversarial_loss``, ref ``:371-372``)
+    — reproduced faithfully."""
+    return F.softplus(-z).mean()
+
+
+def _bce(p: torch.Tensor, y: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    p = p.clamp(eps, 1.0 - eps)
+    return -(y * torch.log(p) + (1.0 - y) * torch.log(1.0 - p)).mean()
 
 
 class UMEML_GAN(nn.Module):
@@ -48,7 +67,9 @@ class UMEML_GAN(nn.Module):
         hidden: int = 256,
         n_proto: int = 6,
         n_reg: int = 3,
+        dropout_rate: float = 0.25,
         fusion: str = "concat",
+        lambda_cyc: float = 10.0,
         topk: int = 3,
         kd_t: float = 5.0,
         attention: str = "nystrom",
@@ -77,6 +98,7 @@ class UMEML_GAN(nn.Module):
             raise NotImplementedError(f"bag_dtype={bag_dtype} (bag-only mixed precision) {_DEFERRED}")
         self.num_classes, self.hidden = num_classes, hidden
         self.n_proto, self.kd_t, self.attention = n_proto, kd_t, attention
+        self.dropout_rate, self.lambda_cyc = dropout_rate, lambda_cyc
         self.gene_group_indexes = tuple(tuple(int(i) for i in g) for g in gene_group_indexes)
         tokens = n_proto + 1
 
@@ -137,9 +159,23 @@ class UMEML_GAN(nn.Module):
     # ------------------------------------------------------------------ #
     # encoder: bag + omics -> normalized token sequences                  #
     # ------------------------------------------------------------------ #
-    def encode(self, batch: Dict[str, torch.Tensor], train: bool = False) -> Dict:
-        if train:
-            raise NotImplementedError(f"UMEML_GAN.encode(train=True) {_DEFERRED}")
+    @staticmethod
+    def _train_generator(train: bool, generator: Optional[torch.Generator]):
+        """The generator that drives training's randomness, None in eval."""
+        if not train:
+            return None
+        if generator is None:
+            raise ValueError("train=True draws dropout and the replacement from an "
+                             "explicit torch.Generator: pass generator=")
+        return generator
+
+    def encode(
+        self,
+        batch: Dict[str, torch.Tensor],
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict:
+        g = self._train_generator(train, generator)
         x_path = batch["img"]
         mask = batch.get("img_mask")
         x_omic = batch["mol"]  # [B, G]
@@ -150,12 +186,12 @@ class UMEML_GAN(nn.Module):
         if insample is not None and "omic_means" in batch:
             x_omic = torch.where(insample.bool(), batch["omic_means"][None, :], x_omic)
 
-        h_path_bag = F.relu(self.path_net(x_path))
+        h_path_bag = dropout(F.relu(self.path_net(x_path)), self.dropout_rate, g)
         if mask is not None:
             h_path_bag = h_path_bag * mask[..., None]
 
         xg = x_omic[:, self.pad_idx] * self.pad_valid[None]  # [B, K, Gmax]
-        h_omic_bag = F.relu(self.omic_net(xg))  # [B, n_proto, D]
+        h_omic_bag = dropout(F.relu(self.omic_net(xg)), self.dropout_rate, g)  # [B, n_proto, D]
 
         p_proto = self.p_proto.expand(b, -1, -1)
         for blk in self.proto_g_blocks:
@@ -163,10 +199,10 @@ class UMEML_GAN(nn.Module):
 
         h_omic = torch.cat([self.o_encoder_token.expand(b, -1, -1), h_omic_bag], dim=1)
         for blk in self.omic_encoder:
-            h_omic = blk(h_omic)
+            h_omic = blk(h_omic, generator=g)
         h_path = torch.cat([self.p_encoder_token.expand(b, -1, -1), p_proto], dim=1)
-        h_path = self.layer_norm_p(self.path_decoder(h_path))
-        h_omic = self.layer_norm_o(self.omic_decoder(h_omic))
+        h_path = self.layer_norm_p(self.path_decoder(h_path, generator=g))
+        h_omic = self.layer_norm_o(self.omic_decoder(h_omic, generator=g))
         return {
             "h_path": h_path,
             "h_omic": h_omic,
@@ -183,15 +219,47 @@ class UMEML_GAN(nn.Module):
         return self.gan_generator_o2p(h_omic)
 
     # ------------------------------------------------------------------ #
+    # GAN losses (the trainer differentiates them over their partitions)  #
+    # ------------------------------------------------------------------ #
+    def gen_loss(self, h_path: torch.Tensor, h_omic: torch.Tensor) -> torch.Tensor:
+        """Adversarial + cycle loss (ref ``:461-471``); inputs detached."""
+        h_path, h_omic = h_path.detach(), h_omic.detach()
+        fake_omic = self.gan_generator_p2o(h_path)
+        fake_path = self.gan_generator_o2p(h_omic)
+        cycle_path = self.gan_generator_o2p(fake_omic)
+        cycle_omic = self.gan_generator_p2o(fake_path)
+        gan_p2o = _bce_with_logits_vs_ones(self.gan_discriminator_o(fake_omic))
+        gan_o2p = _bce_with_logits_vs_ones(self.gan_discriminator_p(fake_path))
+        cyc_o = torch.mean(torch.abs(cycle_omic - h_omic))
+        cyc_p = torch.mean(torch.abs(cycle_path - h_path))
+        return (gan_p2o + gan_o2p) + self.lambda_cyc * (cyc_o + cyc_p)
+
+    def _dis_loss(self, disc, real: torch.Tensor, fake: torch.Tensor) -> torch.Tensor:
+        pred = torch.cat([disc(real), disc(fake)], dim=0)
+        b = real.shape[0]
+        labels = torch.cat([real.new_ones(b, 1), real.new_zeros(b, 1)], dim=0)
+        return _bce(pred, labels)
+
+    def dis_p_loss(self, h_path: torch.Tensor, h_omic: torch.Tensor) -> torch.Tensor:
+        """Pathology discriminator BCE (ref ``:476-482``); generator frozen."""
+        fake_path = self.gan_generator_o2p(h_omic.detach()).detach()
+        return self._dis_loss(self.gan_discriminator_p, h_path.detach(), fake_path)
+
+    def dis_o_loss(self, h_path: torch.Tensor, h_omic: torch.Tensor) -> torch.Tensor:
+        """Omics discriminator BCE (ref ``:484-490``)."""
+        fake_omic = self.gan_generator_p2o(h_path.detach()).detach()
+        return self._dis_loss(self.gan_discriminator_o, h_omic.detach(), fake_omic)
+
+    # ------------------------------------------------------------------ #
     # bottleneck + fusion + explainer head                                 #
     # ------------------------------------------------------------------ #
     def _fuse(self, t_path: torch.Tensor, t_omic: torch.Tensor) -> torch.Tensor:
         z = torch.cat([t_path[:, 0], t_omic[:, 0]], dim=1)
         return F.relu(self.mm_fc2(F.relu(self.mm_fc1(z))))
 
-    def head(self, h_path, h_omic, train: bool = False, T: float = 5.0) -> Dict:
-        if train:
-            raise NotImplementedError(f"UMEML_GAN.head(train=True) {_DEFERRED}")
+    def head(self, h_path, h_omic, train: bool = False, T: float = 5.0,
+             generator: Optional[torch.Generator] = None) -> Dict:
+        g = self._train_generator(train, generator)
         b, n_tokens, _ = h_path.shape
 
         # per-prototype explainer + self-distillation (ref :554-598), first,
@@ -209,7 +277,7 @@ class UMEML_GAN(nn.Module):
         # :649-678) share no state: one batched call over 2B rows
         hp2 = torch.cat([h_path, h_path * w_path], dim=0)
         ho2 = torch.cat([h_omic, h_omic * w_omic], dim=0)
-        t_path, _, t_omic, _ = self.bottleattn(hp2, ho2)
+        t_path, _, t_omic, _ = self.bottleattn(hp2, ho2, generator=g)
         logits_both = self.classifier(self._fuse(t_path, t_omic))
         logits1, logits = logits_both[:b], logits_both[b:]
         return {
@@ -223,16 +291,51 @@ class UMEML_GAN(nn.Module):
     # ------------------------------------------------------------------ #
     # eval forward                                                          #
     # ------------------------------------------------------------------ #
-    def forward(self, batch: Dict[str, torch.Tensor], train: bool = False) -> Dict:
-        return self.finish(self.encode(batch, train=train), batch, train=train)
+    def forward(
+        self,
+        batch: Dict[str, torch.Tensor],
+        train: bool = False,
+        replace_ratio: float = 0.0,
+        cca: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict:
+        enc = self.encode(batch, train=train, generator=generator)
+        return self.finish(enc, batch, train=train, replace_ratio=replace_ratio, cca=cca,
+                           generator=generator)
 
-    def finish(self, enc: Dict, batch: Dict, train: bool = False) -> Dict:
-        """Everything after :meth:`encode`: missing-omics generation, the
-        in-sample generation blend and the head (eval only)."""
-        if train:
-            raise NotImplementedError(f"UMEML_GAN.finish(train=True) {_DEFERRED}")
+    def finish(
+        self,
+        enc: Dict,
+        batch: Dict,
+        train: bool = False,
+        replace_ratio: float = 0.0,
+        cca: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict:
+        """Everything after :meth:`encode`: the progressive replacement
+        (train), missing-omics generation, the in-sample generation blend,
+        the head and the modularity loss (train).  Split out so the trainer
+        runs ONE encode shared by the GAN phase and the main loss."""
         h_path, h_omic = enc["h_path"], enc["h_omic"]
+        if cca:
+            return {
+                "h_path": h_path,
+                "h_omic": h_omic,
+                "p_proto_before": enc["p_proto_before"],
+                "h_omic_bag_before": enc["h_omic_bag_before"],
+            }
+        g = self._train_generator(train, generator)
+        # one generator pass serves the replacement and the missing-omics
+        # generation (the reference calls it twice on the same h_path)
         h_omic_gen = self.gan_generator_p2o(h_path)
+
+        if train:
+            # progressive replacement by generated omics (ref :492-497; the
+            # reference replaces when uniform > ratio)
+            u = torch.rand(h_omic.shape[0], generator=g, device=h_omic.device)
+            ratio = float(replace_ratio)
+            do_replace = (u > ratio) & (ratio > 0)
+            h_omic = torch.where(do_replace[:, None, None], h_omic_gen, h_omic)
 
         # generation for missing omics (ref :499-511)
         without = batch.get("without_omic")
@@ -243,8 +346,26 @@ class UMEML_GAN(nn.Module):
             gen_ratio = insample.to(h_omic.dtype).mean()
             h_omic = (1.0 - gen_ratio) * h_omic + gen_ratio * h_omic_gen
 
-        out = self.head(h_path, h_omic, T=self.kd_t)
-        out["modular_loss"] = torch.zeros((), device=h_path.device)
+        out = self.head(h_path, h_omic, train=train, T=self.kd_t, generator=g)
+        if train:
+            out["modular_loss"] = compute_modularity_pair(
+                (enc["p_proto"], h_omic), enc["h_path_bag"], valid=batch.get("img_mask")
+            )
+        else:
+            out["modular_loss"] = torch.zeros((), device=h_path.device)
         out["h_path"] = h_path
         out["h_omic"] = h_omic
         return out
+
+    def init_all(self, batch: Dict, generator: torch.Generator) -> Dict:
+        """Run every submodule once — the train forward at replace ratio 0.1
+        and the three GAN losses — as the JAX ``init_all`` does to create the
+        parameters (here they exist from construction).  Returns the losses."""
+        out = self(batch, train=True, replace_ratio=0.1, generator=generator)
+        return {
+            "modular_loss": out["modular_loss"],
+            "loss_kd": out["loss_kd"],
+            "gen": self.gen_loss(out["h_path"], out["h_omic"]),
+            "dis_p": self.dis_p_loss(out["h_path"], out["h_omic"]),
+            "dis_o": self.dis_o_loss(out["h_path"], out["h_omic"]),
+        }

@@ -15,8 +15,10 @@ The non-sequence-parallel subset that the UMEML_GAN eval forward runs:
   (``"nystrom"`` or ``"flash"``) as a constructor argument, not a process
   global.
 
-Masks are ``valid=True`` booleans.  Modules are eval-only in this slice:
-dropout and the training paths arrive with the training slice.
+Masks are ``valid=True`` booleans.  Training draws dropout from an explicit
+``torch.Generator`` passed down the forward calls (:func:`dropout`); without
+one a module runs its eval forward.  The attention output of a TransLayer
+drops at rate 0.1, as the JAX package's ``TransLayer.dropout`` does.
 
 Numerics: everything is float32.  The Newton-Schulz pseudo-inverse needs
 true fp32 products, and the residual conv must not run in TF32; the model
@@ -55,6 +57,18 @@ def init_linear_(lin: nn.Linear, generator: torch.Generator) -> None:
 # ---------------------------------------------------------------------------
 # functional pieces
 # ---------------------------------------------------------------------------
+
+
+def dropout(
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
+) -> torch.Tensor:
+    """Inverted dropout as flax's ``nn.Dropout``: keep with probability
+    1 - rate and scale the kept values by 1 / (1 - rate).  The identity
+    without a generator (eval) or at rate 0.  The bits differ from JAX's."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def masked_fill_neg(scores: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -180,9 +194,11 @@ class _QKVAttention(nn.Module):
         heads: int = 8,
         residual: bool = True,
         residual_conv_kernel: int = 33,
+        dropout: float = 0.0,
     ):
         super().__init__()
         self.dim, self.dim_head, self.heads = dim, dim_head, heads
+        self.dropout = dropout  # on the output, in training
         inner = heads * dim_head
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
         self.res_conv = (
@@ -220,13 +236,19 @@ class NystromAttention(_QKVAttention):
         residual: bool = True,
         residual_conv_kernel: int = 33,
         eps: float = 1e-8,
+        dropout: float = 0.0,
     ):
-        super().__init__(dim, dim_head, heads, residual, residual_conv_kernel)
+        super().__init__(dim, dim_head, heads, residual, residual_conv_kernel, dropout)
         self.num_landmarks = num_landmarks
         self.pinv_iterations = pinv_iterations
         self.eps = eps
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
+    def forward(
+        self,
+        x: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
         b, n, _ = x.shape
         h, m, eps = self.heads, self.num_landmarks, self.eps
 
@@ -276,8 +298,8 @@ class NystromAttention(_QKVAttention):
         out = (attn1 @ attn2_inv) @ (attn3 @ v)
         if self.res_conv is not None:
             out = out + residual_depthwise_conv(v, self.res_conv)
-        out = self.to_out(_merge_heads(out))
-        return out[:, -n:]  # keep the LAST n tokens (the padding is in front)
+        out = self.to_out(_merge_heads(out))[:, -n:]  # the padding is in front
+        return dropout(out, self.dropout, generator)
 
 
 class ExactSelfAttention(_QKVAttention):
@@ -285,14 +307,19 @@ class ExactSelfAttention(_QKVAttention):
     :class:`NystromAttention`, computed by the flash-attention forward (the
     Hopper kernel on a CUDA tensor, its plain version on the CPU)."""
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
+    def forward(
+        self,
+        x: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
         q, k, v = self._qkv(x)
         if mask is not None:
             v = v * mask[:, None, :, None]
         out = flash_attention(q, k, v, mask=mask, scale=self.dim_head**-0.5)
         if self.res_conv is not None:
             out = out + residual_depthwise_conv(v, self.res_conv)
-        return self.to_out(_merge_heads(out))
+        return dropout(self.to_out(_merge_heads(out)), self.dropout, generator)
 
 
 class TransLayer(nn.Module):
@@ -300,19 +327,24 @@ class TransLayer(nn.Module):
     ``ops/blocks.py:252-268``).  ``impl="nystrom"`` uses landmarks = dim/2
     (reference parity); ``impl="flash"`` the exact kernel."""
 
-    def __init__(self, dim: int = 512, impl: str = "nystrom"):
+    def __init__(self, dim: int = 512, impl: str = "nystrom", dropout: float = 0.1):
         super().__init__()
         if impl not in ATTENTION_IMPLS:
             raise ValueError(f"TransLayer impl {impl!r} not in {ATTENTION_IMPLS}")
         self.impl = impl
         self.norm = nn.LayerNorm(dim, eps=1e-5)
         if impl == "flash":
-            self.attn = ExactSelfAttention(dim=dim, dim_head=dim // 8, heads=8)
+            self.attn = ExactSelfAttention(dim=dim, dim_head=dim // 8, heads=8, dropout=dropout)
         else:
             self.attn = NystromAttention(
                 dim=dim, dim_head=dim // 8, heads=8, num_landmarks=dim // 2,
-                pinv_iterations=6,
+                pinv_iterations=6, dropout=dropout,
             )
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
-        return x + self.attn(self.norm(x), mask=mask)
+    def forward(
+        self,
+        x: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        return x + self.attn(self.norm(x), mask=mask, generator=generator)

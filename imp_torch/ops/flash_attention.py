@@ -17,8 +17,9 @@ Three functions:
   it scales q before the kernel, as JAX does, and returns O.
 
 Forward only: the backward kernels (``_make_dq_kernel``,
-``_make_dkv_kernel``) come with the training slice, so on CUDA a call that
-would need a gradient raises instead of returning a result without one.
+``_make_dkv_kernel``) are the ROADMAP item "training under
+``TPU.ATTENTION=flash`` (K2/K3)", so on CUDA a call that would need a
+gradient raises instead of returning a result without one.
 Unlike the TPU path, keys are not padded to a block multiple: the kernel
 masks its ragged edge itself.  A query row whose keys are all masked returns
 the mean of V over all keys and an lse near -1e30 — finite, like the TPU
@@ -78,8 +79,9 @@ def flash_attention_fwd(
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
         raise NotImplementedError(
-            "the flash-attention backward kernels come with the training slice "
-            "(ROADMAP §A2, kernels K2/K3); call under torch.no_grad()"
+            "the flash-attention backward kernels are not ported yet: ROADMAP.md "
+            "item 'training under TPU.ATTENTION=flash (K2/K3)'; call under "
+            "torch.no_grad()"
         )
     for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
         if t.dtype != torch.float32:

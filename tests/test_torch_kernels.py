@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from imp_torch import kernels
+from imp_torch.ops import modularity as M
 from imp_torch.ops.flash_attention import (
     NEG_INF,
     flash_attention_fwd,
@@ -100,8 +101,67 @@ def test_flash_kernel_matches_plain_on_card(d):
         flash_attention_fwd(q.double(), k.double(), v.double(), bias.double())
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, bias)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="K2/K3"):
         flash_attention_fwd(q.requires_grad_(), k, v, bias)
+
+
+def _bag(b, n, d, lengths, p_counts, seed=11, device="cpu"):
+    """A normalised masked bag and its clipped assignments, as _prepare makes them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(b, n, d, generator=g, device=device)
+    valid = torch.arange(n, device=device)[None, :] < torch.tensor(lengths, device=device)[:, None]
+    cs = [torch.randn(b, p, d, generator=g, device=device) for p in p_counts]
+    return M._prepare(cs, x, valid)
+
+
+def _rel(a, b):
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p_counts", [(6, 7), (3, 5), (4,)])
+def test_modularity_kernels_match_plain_on_card(p_counts):
+    """K4 and K5 against their plain versions on the card: degrees, the
+    per-set scalars and dC to 1e-4 relative (fp32, different summation
+    order), at ragged lengths with a fully masked slide."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
+    norm_x, cs = _bag(3, 1000, 256, (1000, 731, 0), p_counts, device="cuda")
+    before = kernels.launches()
+    deg = M.deg_cuda(norm_x)
+    deg_ref = M.degree_reference(norm_x)
+    assert _rel(deg, deg_ref) < 1e-4
+    e = deg_ref.sum(dim=1).clamp_min(1e-12)
+    s1, q, dcs = M.combined_cuda(norm_x, cs, deg_ref, (1.0 / e).contiguous(), 0.1)
+    s1_ref, q_ref, dcs_ref = M.combined_reference(norm_x, cs, deg_ref, 1.0 / e, 0.1)
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert after["modularity_deg"] == before["modularity_deg"] + 1
+    assert after["modularity_combined"] == before["modularity_combined"] + 1
+    assert _rel(s1, s1_ref) < 1e-4 and _rel(q, q_ref) < 1e-4
+    for dc, dc_ref in zip(dcs, dcs_ref):
+        assert _rel(dc, dc_ref) < 1e-4
+    # the fully masked slide is exactly zero
+    assert deg[2].abs().max().item() == 0.0 and dcs[0][2].abs().max().item() == 0.0
+    # a CUDA tensor never falls back: what the kernel does not take raises
+    with pytest.raises(TypeError, match="float32"):
+        M.deg_cuda(norm_x.double())
+    with pytest.raises(ValueError, match="1 or 2 prototype sets"):
+        M.combined_cuda(norm_x, cs * 3, deg_ref, 1.0 / e, 0.1)
+    with pytest.raises(ValueError, match="1..8"):
+        M.combined_cuda(norm_x, [torch.zeros(3, 9, 1000, device="cuda")], deg_ref, 1.0 / e, 0.1)
+
+
+def test_modularity_wrappers_are_the_plain_versions_on_cpu():
+    norm_x, cs = _bag(2, 40, 16, (40, 13), (6, 7))
+    before = kernels.launches()
+    deg = M.deg_cuda(norm_x)
+    assert torch.equal(deg, M.degree_reference(norm_x))
+    inv_e = 1.0 / deg.sum(dim=1)
+    for a, b in zip(M.combined_cuda(norm_x, cs, deg, inv_e, 0.1)[:2],
+                    M.combined_reference(norm_x, cs, deg, inv_e, 0.1)[:2]):
+        assert torch.equal(a, b)
+    assert kernels.launches() == before  # the plain versions launch nothing
 
 
 # ---------------------------------------------------------------------------
@@ -134,10 +194,12 @@ def test_port_sources_import_no_jax():
 def test_port_imports_with_jax_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'optax', 'triton', 'imp_tpu', 'yaml'):\n"
+        "for m in ('jax', 'flax', 'optax', 'triton', 'imp_tpu', 'yaml', 'pandas', 'h5py'):\n"
         "    sys.modules[m] = None\n"
         "import imp_torch, imp_torch.kernels, imp_torch.convert, imp_torch.serving\n"
         "import imp_torch.models, imp_torch.tools.export_model, imp_torch.tools.serve\n"
+        "import imp_torch.engine.mbtrain, imp_torch.tools.train, imp_torch.data\n"
+        "import imp_torch.evaluation, imp_torch.native, imp_torch.ops.modularity\n"
         "from imp_torch.config import get_cfg_default\n"
         "cfg = get_cfg_default(); cfg.TPU.ATTENTION = 'flash'; cfg.freeze()\n"
         "print('ok')\n"

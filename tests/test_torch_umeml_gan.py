@@ -173,7 +173,8 @@ def test_unported_options_raise():
         resolve_attention("dense")
     assert resolve_attention("auto") == "nystrom"
     model = UMEML_GAN(**kw)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    # training is ported; it needs an explicit generator for its randomness
+    with pytest.raises(ValueError, match="torch.Generator"):
         model.encode({}, train=True)
 
 
