@@ -10,9 +10,11 @@ Phases, each printing one JSON line (the run fails on the first error):
    card and time it beside its bound, the plain version and, where one
    exists, the one PyTorch call that computes the same function
    (``library_ms``, a yardstick only): K1 (flash forward) at the serving
-   shapes and the 10 000-patch bag envelope; K4/K5 (modularity degree and
-   combined passes) at the training batch of ``UMEML_GAN.yaml`` and at a
-   batch with a fully masked slide.
+   shapes, the 10 000-patch bag envelope and TransMIL's 10 001-token bag;
+   K2/K3 (flash backward) at TransMIL's bag, the bag envelope with a fully
+   masked slide, and UMEML_GAN's 17-token decoder; K4/K5 (modularity degree
+   and combined passes) at the training batch of ``UMEML_GAN.yaml`` and at
+   a batch with a fully masked slide.
 3. ``serve_flash`` — the serving path: UMEML_GAN at the full width of
    ``configs/Survival/UMEML_GAN.yaml`` (hidden 256, bags padded to
    10 000 x 512, 1 000 genes in 6 groups, exported batch 8) with
@@ -32,9 +34,26 @@ Phases, each printing one JSON line (the run fails on the first error):
    modularity on the card (loss, modular loss, gradients of ``p_proto``
    and the omics encoder), then the step time at batch 8
    (``UMEML_GAN_THROUGHPUT.yaml``).
+7. ``train_transmil`` — ``python -m imp_torch.tools.train --trainer
+   TransMIL --config-file configs/Survival/TransMIL.yaml TPU.ATTENTION
+   flash`` (feature 512, bags padded to 10 000, batch 1) on the same 16
+   slides for 2 epochs: K1, K2 and K3 twice per train step, K1 twice and
+   K2/K3 never per eval batch; a checkpoint must reload; then one step
+   through the kernels against one through the plain flash attention
+   (loss and every parameter gradient), and ``train_step_transmil``, the
+   step time at the 10 001-token bag.
+8. ``train_flash`` / ``train_step_flash`` — phases 5 and 6 under
+   ``TPU.ATTENTION=flash`` (2 epochs, both with the GAN phase): K1 launches
+   once per TransLayer call, K2 and K3 once per TransLayer call with grad
+   (counted by a forward hook), never in eval; one step through the kernels
+   against one through the plain flash attention.
 
 Then a ``kernels`` line (every ported kernel with its launches on its
-path), the card's name and power limit from ``nvidia-smi``, and last
+main path: serving for K1, TransMIL training for K2/K3, MBTRAIN for
+K4/K5; K2 and K3 each with its own device time and plain version, no
+library call, and a ``pair`` object that times dq, dk and dv together
+through the wrapper, the plain backward and SDPA's backward), the card's
+name and power limit from ``nvidia-smi``, and last
 ``{"ok": true, "device": {...}}``.  Weights are random, from a seed.
 Without a CUDA card the script exits 2 and prints no result.
 """
@@ -73,6 +92,16 @@ KERNEL_INFO = {
         "route": "cuda",
         "source": "imp_torch/csrc/flash_fwd.cu",
         "replaces": "imp_tpu/ops/flash_attention.py:46",
+    },
+    "flash_bwd_dq": {
+        "route": "cuda",
+        "source": "imp_torch/csrc/flash_bwd.cu",
+        "replaces": "imp_tpu/ops/flash_attention.py:104",
+    },
+    "flash_bwd_dkv": {
+        "route": "cuda",
+        "source": "imp_torch/csrc/flash_bwd.cu",
+        "replaces": "imp_tpu/ops/flash_attention.py:144",
     },
     "modularity_deg": {
         "route": "cuda",
@@ -137,14 +166,14 @@ FLAGSHIP = {
 }
 #: what configs/Survival/UMEML_GAN_THROUGHPUT.yaml changes
 THROUGHPUT = {"DATALOADER.TRAIN.BATCH_SIZE": 8, "DATALOADER.TEST.BATCH_SIZE": 8, "OPTIM.LR": 8e-4}
+TRANSMIL_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "configs", "Survival", "TransMIL.yaml")
+LOG_DIR = os.path.join("output", "chip_smoke")  # the trainers' logs (gitignored)
 
 
-def flagship_cfg(attention: str = "auto", **overrides):
-    """UMEML_GAN.yaml's config (plus ``overrides``, dotted keys), frozen."""
-    from imp_torch.config import get_cfg_default
-
-    cfg = get_cfg_default()
-    for key, value in {**FLAGSHIP, "TPU.ATTENTION": attention, **overrides}.items():
+def _set(cfg, values: dict):
+    """Set dotted keys of ``cfg`` and freeze it."""
+    for key, value in values.items():
         *path, leaf = key.split(".")
         node = cfg
         for part in path:
@@ -152,6 +181,22 @@ def flagship_cfg(attention: str = "auto", **overrides):
         setattr(node, leaf, value)
     cfg.freeze()
     return cfg
+
+
+def flagship_cfg(attention: str = "auto", **overrides):
+    """UMEML_GAN.yaml's config (plus ``overrides``, dotted keys), frozen."""
+    from imp_torch.config import get_cfg_default
+
+    return _set(get_cfg_default(), {**FLAGSHIP, "TPU.ATTENTION": attention, **overrides})
+
+
+def transmil_cfg(**overrides):
+    """TransMIL.yaml under ``TPU.ATTENTION=flash`` (plus ``overrides``), frozen."""
+    from imp_torch.config import get_cfg_default
+
+    cfg = get_cfg_default()
+    cfg.merge_from_file(TRANSMIL_YAML)
+    return _set(cfg, {"TPU.ATTENTION": "flash", **overrides})
 
 
 def flagship_opts(**overrides) -> list:
@@ -196,19 +241,28 @@ def profiled(fn, iters: int):
     return prof.key_averages()
 
 
+def device_rows(events):
+    """The rows of a trace that are device work (kernels, copies, sets).
+    A CPU row (an aten op, ``cudaLaunchKernel``) also carries the device
+    time of the kernels it launched, so summing every row counts a kernel
+    more than once."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events or () if e.device_type == DeviceType.CUDA]
+
+
 def device_ms(fn, kernel_name: str, iters: int = 20):
     """Mean device time of the CUDA kernel named ``kernel_name`` per call of
     ``fn``; None where the trace holds no device time for it."""
-    events = profiled(fn, iters)
-    total = sum(e.self_device_time_total for e in events or () if kernel_name in e.key)
+    total = sum(e.self_device_time_total for e in device_rows(profiled(fn, iters))
+                if kernel_name in e.key)
     return total / iters / 1e3 if total else None
 
 
 def device_busy_ms(fn, iters: int = 5):
-    """Mean device time of all kernels per call of ``fn`` (the busy part of
-    its wall time); None where the trace holds no device time."""
-    events = profiled(fn, iters)
-    total = sum(e.self_device_time_total for e in events or ())
+    """Mean device time of all device work per call of ``fn`` (the busy part
+    of its wall time); None where the trace holds no device time."""
+    total = sum(e.self_device_time_total for e in device_rows(profiled(fn, iters)))
     return total / iters / 1e3 if total else None
 
 
@@ -237,6 +291,7 @@ FLASH_SHAPES = [
     ("serve_b16_n14", 16, 8, 14, 32, None),  # bottleneck encoders, batch 2B
     ("bag_n10000_d32", 3, 8, 10000, 32, (10000, 7313, 0)),
     ("bag_n10000_d64", 3, 8, 10000, 64, (10000, 7313, 0)),
+    ("transmil_n10001_d64", 1, 8, 10001, 64, (7314,)),  # TransMIL: 7 313 patches + cls
 ]
 #: launches of each serving shape in one eval forward
 FLASH_PER_FORWARD = {"serve_b8_n7": 4, "serve_b16_n14": 2}
@@ -311,6 +366,132 @@ def phase_kernel(card: str):
                 f"flash_fwd disagrees with its plain version at {name}: {row}")
         rows[name] = row
         del q, k, v, o, lse, o_ref, lse_ref
+        torch.cuda.empty_cache()
+    kernels.reset_launches()  # the comparison launches do not count
+    return rows
+
+
+BWD_SHAPES = [
+    # name, B, H, N, d, valid key counts (None = no mask)
+    ("transmil_n10001_d64", 1, 8, 10001, 64, (7314,)),  # (a) TransMIL's bag
+    ("bag_n10000_d32", 3, 8, 10000, 32, (10000, 7313, 0)),  # (b) one slide fully masked
+    ("umeml_b8_n17_d32", 8, 8, 17, 32, None),  # (c) UMEML_GAN's decoder at batch 8
+]
+BWD_MAIN_SHAPE = "transmil_n10001_d64"
+
+
+def flash_bwd_bounds(b, h, n, d, valid) -> dict:
+    """The least time for K2 and K3 on this call's work: per (query, key)
+    pair one exp and, per dim, 3 products (K2: 6 FLOPs) or 4 (K3: 8), over
+    the keys the data needs — a slide's valid keys, or all of them where
+    none is valid (P = 1 on every key there) — against q, k, v, dO, bias,
+    lse and delta read once and the gradients written once."""
+    keys = b * n if valid is None else sum(v if v else n for v in valid)
+    pairs = h * n * keys
+    inputs = 4 * (4 * b * h * n * d + b * n + 2 * b * h * n)
+    return {
+        "flash_bwd_dq": bound_ms(6 * pairs * d + pairs, inputs + 4 * b * h * n * d),
+        "flash_bwd_dkv": bound_ms(8 * pairs * d + pairs, inputs + 8 * b * h * n * d),
+    }
+
+
+def sdpa_bwd_ms(q, k, v, bias, do, iters: int):
+    """The backward of ``scaled_dot_product_attention`` on the same fp32
+    inputs and mask: fwd + bwd minus fwd (a yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    mask4 = bias[:, None, None, :]
+
+    def fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask4, scale=1.0)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qg, kg, vg), do)
+
+    with torch.enable_grad():
+        return cuda_ms(fwd_bwd, iters, warmup=1) - cuda_ms(fwd, iters, warmup=1)
+
+
+#: the CUDA kernel that each backward kernel's trace rows are named after
+BWD_KERNEL_SYMBOL = {"flash_bwd_dq": "dq_kernel", "flash_bwd_dkv": "dkv_kernel"}
+
+
+def phase_flash_bwd(card: str):
+    """K2 and K3 against their plain versions on the card, and timed.  Both
+    run in one ``flash_attention_bwd`` call, so the events time the pair
+    (``pair``: dq, dk and dv, with the plain and SDPA backwards that compute
+    the same three) and each kernel's own ``ms`` is its device time in the
+    trace of that call."""
+    import torch
+
+    from imp_torch import kernels
+    from imp_torch.ops.flash_attention import (
+        NEG_INF, flash_attention_bwd, flash_attention_bwd_dkv_reference,
+        flash_attention_bwd_dq_reference, flash_attention_bwd_reference, flash_attention_reference,
+    )
+
+    plain = {"flash_bwd_dq": flash_attention_bwd_dq_reference,
+             "flash_bwd_dkv": flash_attention_bwd_dkv_reference}
+
+    rows = {}
+    for name, b, h, n, d, valid in BWD_SHAPES:
+        g = torch.Generator(device=DEVICE).manual_seed(SEED)
+        q, k, v, do = (torch.randn(b, h, n, d, device=DEVICE, generator=g) for _ in range(4))
+        q = q * d**-0.5
+        if valid is None:
+            bias = torch.zeros(b, n, device=DEVICE)
+        else:
+            lens = torch.tensor(valid, device=DEVICE)
+            bias = torch.where(torch.arange(n, device=DEVICE)[None, :] < lens[:, None], 0.0, NEG_INF)
+        with torch.no_grad():
+            o, lse = flash_attention_reference(q, k, v, bias)
+            delta = (do * o).sum(-1)
+            del o
+            args = (q, k, v, bias, do, lse, delta)
+            got = flash_attention_bwd(*args)
+            ref = flash_attention_bwd_reference(*args)
+            torch.cuda.synchronize()
+            errs = {f"{g_}_rel": rel_err(a, r) for g_, a, r in zip(("dq", "dk", "dv"), got, ref)}
+            abs_err = {"flash_bwd_dq": (got[0] - ref[0]).abs().max().item(),
+                       "flash_bwd_dkv": max((a - r).abs().max().item() for a, r in zip(got[1:], ref[1:]))}
+            finite = all(bool(torch.isfinite(t).all()) for t in got)
+            del got, ref
+            torch.cuda.empty_cache()
+            iters = 100 if n < 100 else 5
+
+            def wrapper():
+                return flash_attention_bwd(*args)
+
+            pair = {
+                "covers": "dq, dk and dv: K2 then K3 in one flash_attention_bwd call",
+                "ms": cuda_ms(wrapper, iters),
+                "plain_ms": cuda_ms(lambda: flash_attention_bwd_reference(*args), min(iters, 3),
+                                    warmup=1),
+            }
+            times = {kn: (device_ms(wrapper, sym, iters=min(iters, 20)),
+                          cuda_ms(lambda: plain[kn](*args), min(iters, 3), warmup=1))
+                     for kn, sym in BWD_KERNEL_SYMBOL.items()}
+        pair["library_ms"] = sdpa_bwd_ms(q, k, v, bias, do, min(iters, 3))
+        bounds = flash_bwd_bounds(b, h, n, d, valid)
+        for kname, (ms, plain_ms) in times.items():
+            require(ms is not None, f"the trace holds no device time for {kname} at {name}")
+            bound, bound_by = bounds[kname]
+            row = {
+                "phase": "kernel", "kernel": kname, "shape": name, "card": card,
+                "B": b, "H": h, "N": n, "d": d, "valid": valid, **errs,
+                "max_abs_err": abs_err[kname], "tol_rel": KERNEL_TOL, "finite": finite,
+                "ms": ms, "plain_ms": plain_ms,
+                "library_ms": None,  # no one PyTorch call computes dq alone, or dk and dv alone
+                "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / ms,
+                "pair": pair,
+            }
+            emit(row)
+            rows[(kname, name)] = row
+        require(finite and max(errs.values()) <= KERNEL_TOL,
+                f"flash backward disagrees with its plain version at {name}: {errs}")
+        del q, k, v, do, bias, lse, delta, args
         torch.cuda.empty_cache()
     kernels.reset_launches()  # the comparison launches do not count
     return rows
@@ -449,31 +630,27 @@ def make_slides(rng, lengths, feat_dim, num_genes):
 
 @contextlib.contextmanager
 def plain_attention():
-    """Route the flash wrapper to its plain version on the card, so the
-    same model can be run through both."""
+    """Route the flash wrappers (forward and backward) to their plain
+    versions on the card, so the same model can be run through both."""
     import imp_torch.ops.flash_attention as fa
 
-    saved = fa.flash_attention_fwd
+    saved = fa.flash_attention_fwd, fa.flash_attention_bwd
     fa.flash_attention_fwd = fa.flash_attention_reference
+    fa.flash_attention_bwd = fa.flash_attention_bwd_reference
     try:
         yield
     finally:
-        fa.flash_attention_fwd = saved
+        fa.flash_attention_fwd, fa.flash_attention_bwd = saved
 
 
 def pairs_of(model, batch):
     """The bottleneck's greedy path/omic pairs for ``batch``, per row."""
     import torch
 
-    from imp_torch.ops.pairing import cosine_similarity_matrix, greedy_topk_pairs
-
     seen = {}
 
     def hook(_m, args):
-        seen["pairs"] = torch.cat(
-            greedy_topk_pairs(cosine_similarity_matrix(args[0], args[1]), model.bottleattn.topk),
-            dim=1,
-        )
+        seen["pairs"] = torch.cat(greedy_pairs(model, args), dim=1)
 
     handle = model.bottleattn.register_forward_pre_hook(hook)
     try:
@@ -688,6 +865,7 @@ def phase_serve(attention: str, card: str, tmp: str):
 TRAIN_LENGTHS = (10000, 7313, 1, 4096, 9999, 300, 2048, 517, 10000, 64, 1500, 777,
                  5000, 8192, 12, 3000)
 TRAIN_EPOCHS = 3
+TRAIN_EPOCHS_FLASH = 2  # MBTRAIN and TransMIL under flash
 STEP_TOL = 1e-4  # kernel vs plain modularity inside one train step, fp32
 STEP_TIMED = 12  # timed steps at batch 8, after warm-up
 
@@ -732,55 +910,76 @@ def seeded_bags():
 
 
 @contextlib.contextmanager
-def audited_trainer(record: list):
-    """Record the kernel launches (and the metrics) of every MBTRAIN main
-    step, CCA epoch and evaluation."""
+def audited(cls, names, record: list):
+    """Record, for every call of the methods ``names`` of trainer class
+    ``cls``: its name, the kernel launches it made, the TransLayer calls it
+    made (``calls``, and ``grad``: those with grad enabled, counted by a
+    global forward hook) and, for ``train_step``, its metrics."""
+    import torch
+
     from imp_torch import kernels
-    from imp_torch.engine.mbtrain import MBTRAIN
+    from imp_torch.ops.attention import TransLayer
 
-    saved = {n: getattr(MBTRAIN, n) for n in ("train_step", "run_epoch_cca", "test")}
+    layers = {"calls": 0, "grad": 0}
 
-    def audited(name):
-        fn = saved[name]
+    def count(module, _args, _out):
+        if isinstance(module, TransLayer):
+            layers["calls"] += 1
+            layers["grad"] += int(torch.is_grad_enabled())
+
+    own = {n: cls.__dict__.get(n) for n in names}
+
+    def wrap(name):
+        fn = getattr(cls, name)
 
         def wrapper(self, *args, **kw):
-            before = kernels.launches()
+            before, seen = kernels.launches(), dict(layers)
             out = fn(self, *args, **kw)
             after = kernels.launches()
             record.append((name, {k: after[k] - before[k] for k in after},
+                           {k: layers[k] - seen[k] for k in layers},
                            out if name == "train_step" else None))
             return out
 
         return wrapper
 
-    for n in saved:
-        setattr(MBTRAIN, n, audited(n))
+    hook = torch.nn.modules.module.register_module_forward_hook(count)
+    for n in names:
+        setattr(cls, n, wrap(n))
     try:
         yield
     finally:
-        for n, fn in saved.items():
-            setattr(MBTRAIN, n, fn)
+        hook.remove()
+        for n, fn in own.items():
+            if fn is None:
+                delattr(cls, n)
+            else:
+                setattr(cls, n, fn)
 
 
-def phase_train(card: str, root: str, out: str):
+def flash_launches_match_layers(records) -> bool:
+    """K1 once per TransLayer call, K2 and K3 once per call with grad."""
+    return all(d["flash_fwd"] == c["calls"] and d["flash_bwd_dq"] == d["flash_bwd_dkv"] == c["grad"]
+               for _, d, c, _ in records)
+
+
+def run_trainer(argv, cls, names, log_name):
+    """``python -m imp_torch.tools.train argv`` in process, on the seeded
+    bags, with the calls of ``cls.names`` audited; the counts are set to 0
+    just before and read just after.  Returns (result, launches, records,
+    seconds, log text); the log is kept under ``LOG_DIR``."""
     import io
 
     import torch
 
     from imp_torch import kernels
-    from imp_torch.models import build_model, survival_num_classes
     from imp_torch.tools.train import run
 
-    argv = ["--root", root, "--seed", "1", "--trainer", "MBTRAIN", "--output-dir", out,
-            "--device", DEVICE] + flagship_opts(**{
-                "OPTIM.MAX_EPOCH": TRAIN_EPOCHS, "TRAIN.CURRICULUM.GAN_START_EPOCH": 1,
-                "TRAIN.CURRICULUM.REPLACE_START_EPOCH": 2, "TPU.ATTENTION": "auto",
-            })
     record = []
     console = io.StringIO()  # the trainer's log goes to out/log.txt
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with seeded_bags(), audited_trainer(record), contextlib.redirect_stdout(console):
+    with seeded_bags(), audited(cls, names, record), contextlib.redirect_stdout(console):
         # ---- the main path: counts at 0 just before, read just after ------
         kernels.reset_launches()
         t0 = time.perf_counter()
@@ -788,55 +987,93 @@ def phase_train(card: str, root: str, out: str):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = kernels.launches()
+    out = argv[argv.index("--output-dir") + 1]
     with open(os.path.join(out, "log.txt")) as f:
         log = f.read()
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "chip_smoke_train_log.txt"), "w") as f:
+    os.makedirs(LOG_DIR, exist_ok=True)
+    with open(os.path.join(LOG_DIR, log_name), "w") as f:
         f.write(log)
+    return result, counts, record, seconds, log
+
+
+def reload_last(out: str, model):
+    """Load the last checkpoint of a run into ``model``, strictly; returns
+    (checkpoint name, its epoch)."""
+    import torch
+
+    mdir = os.path.join(out, "model")
+    with open(os.path.join(mdir, "checkpoint")) as f:
+        ckpt_name = f.read().strip()
+    state = torch.load(os.path.join(mdir, ckpt_name), map_location=DEVICE, weights_only=True)
+    model.load_state_dict(state["model"], strict=True)
+    return ckpt_name, int(state["epoch"])
+
+
+def phase_train(card: str, root: str, out: str, attention: str = "auto"):
+    """MBTRAIN through the CLI: 3 epochs at ``auto`` (plain, GAN, GAN +
+    replacement), 2 under ``flash`` (GAN, GAN + replacement)."""
+    import torch
+
+    from imp_torch.engine.mbtrain import MBTRAIN
+    from imp_torch.models import build_model, survival_num_classes
+    from imp_torch.serving import even_gene_groups
+
+    flash = attention == "flash"
+    epochs = TRAIN_EPOCHS_FLASH if flash else TRAIN_EPOCHS
+    argv = ["--root", root, "--seed", "1", "--trainer", "MBTRAIN", "--output-dir", out,
+            "--device", DEVICE] + flagship_opts(**{
+                "OPTIM.MAX_EPOCH": epochs, "TRAIN.CURRICULUM.GAN_START_EPOCH": 0 if flash else 1,
+                "TRAIN.CURRICULUM.REPLACE_START_EPOCH": 1 if flash else 2,
+                "TPU.ATTENTION": attention,
+            })
+    result, counts, record, seconds, log = run_trainer(
+        argv, MBTRAIN, ("train_step", "run_epoch_cca", "test"),
+        f"chip_smoke_train_{attention}_log.txt")
 
     steps = [r for r in record if r[0] == "train_step"]
     others = [r for r in record if r[0] != "train_step"]
-    per_step_ok = all(d["modularity_deg"] == 1 and d["modularity_combined"] == 1 and d["flash_fwd"] == 0
-                      for _, d, _ in steps)
-    others_zero = all(not any(d.values()) for _, d, _ in others)
-    metrics = [{k: float(v) for k, v in m.items()} for _, _, m in steps]
+    per_step_ok = all(d["modularity_deg"] == 1 and d["modularity_combined"] == 1
+                      and (d["flash_fwd"] > 0) == flash for _, d, _, _ in steps)
+    others_zero = all(d["modularity_deg"] == d["modularity_combined"] == 0
+                      and (flash or not any(d.values())) for _, d, _, _ in others)
+    metrics = [{k: float(v) for k, v in m.items()} for _, _, _, m in steps]
     finite = all(np.isfinite(list(m.values())).all() for m in metrics)
     gan_steps = sum("loss_gen" in m for m in metrics)
     cindex = [float(line.split(":")[1].strip().rstrip("%")) for line in log.splitlines()
               if line.startswith("* cindex:")]
     # the last checkpoint reloads into a fresh model, strictly
-    mdir = os.path.join(out, "model")
-    with open(os.path.join(mdir, "checkpoint")) as f:
-        ckpt_name = f.read().strip()
-    state = torch.load(os.path.join(mdir, ckpt_name), map_location=DEVICE, weights_only=True)
-    cfg = flagship_cfg()
-    from imp_torch.serving import even_gene_groups
-
-    fresh = build_model(cfg.MODEL.NAME, cfg=cfg, num_classes=survival_num_classes(cfg.TASK.NAME, 0),
-                        gene_group_indexes=even_gene_groups(1000, 6), device=DEVICE)
-    fresh.load_state_dict(state["model"], strict=True)
+    cfg = flagship_cfg(attention)
+    ckpt_name, ckpt_epoch = reload_last(out, build_model(
+        cfg.MODEL.NAME, cfg=cfg, num_classes=survival_num_classes(cfg.TASK.NAME, 0),
+        gene_group_indexes=even_gene_groups(1000, 6), device=DEVICE))
+    layers_ok = flash_launches_match_layers(record) if flash else True
     row = {
-        "phase": "train", "card": card, "entry": "python -m imp_torch.tools.train",
+        "phase": "train_flash" if flash else "train", "card": card,
+        "entry": "python -m imp_torch.tools.train", "attention": attention,
         "slides": len(TRAIN_LENGTHS), "bag_lengths": list(TRAIN_LENGTHS),
         "batch": FLAGSHIP["DATALOADER.TRAIN.BATCH_SIZE"], "bag_pad": FLAGSHIP["DATASET.BAG_PAD"],
-        "hidden": FLAGSHIP["MODEL.HIDDEN_DIM"], "genes": 1000, "epochs": TRAIN_EPOCHS,
+        "hidden": FLAGSHIP["MODEL.HIDDEN_DIM"], "genes": 1000, "epochs": epochs,
         "main_steps": len(steps), "gan_steps": gan_steps,
         "cca_epochs": sum(r[0] == "run_epoch_cca" for r in others),
         "evaluations": sum(r[0] == "test" for r in others),
-        "launches": counts, "launches_once_per_main_step": per_step_ok,
-        "launches_outside_main_steps": 0 if others_zero else
-        [r[:2] for r in others if any(r[1].values())],
+        "launches": counts, "K4_K5_once_per_main_step": per_step_ok,
+        "K4_K5_outside_main_steps": 0 if others_zero else [r[:2] for r in others],
+        "translayer_calls_per_main_step": sorted({c["calls"] for _, _, c, _ in steps}),
+        "flash_launches_match_translayer_calls": layers_ok,
+        "K2_K3_in_eval": sum(d["flash_bwd_dq"] + d["flash_bwd_dkv"] for n, d, _, _ in others
+                             if n == "test"),
         "losses_finite": finite, "last_loss": metrics[-1] if metrics else None,
         "cindex_lines": cindex, "result_cindex": result, "checkpoint": ckpt_name,
-        "checkpoint_epoch": int(state["epoch"]), "seconds": seconds,
+        "checkpoint_epoch": ckpt_epoch, "seconds": seconds,
         "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     emit(row)
     require(len(steps) > 0 and per_step_ok and others_zero, f"K4/K5 launches off the main steps: {row}")
     require(counts["modularity_deg"] == counts["modularity_combined"] == len(steps), row)
-    require(finite and gan_steps > 0 and row["cca_epochs"] == TRAIN_EPOCHS - 1, row)
-    require(len(cindex) >= TRAIN_EPOCHS + 1 and result is not None, "no C-index reported")
-    require(int(state["epoch"]) == TRAIN_EPOCHS, f"last checkpoint is epoch {state['epoch']}")
+    require(layers_ok and row["K2_K3_in_eval"] == 0, f"K1/K2/K3 launches vs TransLayer calls: {row}")
+    require(finite and gan_steps > 0 and row["cca_epochs"] == epochs - 1, row)
+    require(len(cindex) >= epochs + 1 and result is not None, "no C-index reported")
+    require(ckpt_epoch == epochs, f"last checkpoint is epoch {ckpt_epoch}")
     return row, counts
 
 
@@ -853,58 +1090,37 @@ def plain_modularity():
         M.modularity_passes = saved
 
 
-def phase_train_step(card: str, root: str, out: str):
+FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "dq_kernel", "dkv_kernel")
+MOD_KERNEL_NAMES = ("deg_kernel", "combined_kernel")
+
+
+def grads_check(loss_and_grads, plain, names):
+    """One step's loss and gradients through the kernels and, under the
+    context ``plain``, through the plain versions: their relative errors
+    (the worst parameter named) and the launches of the kernel pass."""
     import torch
 
     from imp_torch import kernels
-    from imp_torch.engine import build_trainer
-
-    def trainer_for(**overrides):
-        cfg = flagship_cfg(**{"DATASET.ROOT": root, "OUTPUT_DIR": out, "VERBOSE": False,
-                              "SEED": 1, "DATASET.FOLD": 1, "TRAINER.NAME": "MBTRAIN", **overrides})
-        with seeded_bags():
-            trainer = build_trainer(cfg, device=DEVICE)
-            batch = next(iter(trainer.train_loader))
-        return trainer, batch, trainer._device_batch(batch)
-
-    # ---- one main step, kernels vs plain modularity, same dropout draws -----
-    trainer, batch, db = trainer_for()
-    model, g = trainer.model, trainer.generator
-    state = g.get_state()
-    params = [model.p_proto] + list(model.omic_encoder.parameters())
-
-    def loss_and_grads():
-        g.set_state(state)
-        enc = model.encode(db, train=True, generator=g)
-        out_ = model.finish(enc, db, train=True, replace_ratio=0.0, generator=g)
-        loss = trainer.task_loss(out_["logits"], db) + out_["modular_loss"] + out_["loss_kd"]
-        grads = torch.autograd.grad(loss, params)
-        return loss.detach(), out_["modular_loss"].detach(), grads
 
     kernels.reset_launches()
-    loss_k, mod_k, grads_k = loss_and_grads()
+    loss_k, extra_k, grads_k = loss_and_grads()
     torch.cuda.synchronize()
     counted = kernels.launches()
-    with plain_modularity():
-        loss_p, mod_p, grads_p = loss_and_grads()
-    check = {
-        "loss_rel": rel_err(loss_k, loss_p), "modular_loss_rel": rel_err(mod_k, mod_p),
-        "grad_p_proto_rel": rel_err(grads_k[0], grads_p[0]),
-        "grad_omic_encoder_rel": max(rel_err(a, b) for a, b in zip(grads_k[1:], grads_p[1:])),
-        "loss": loss_k.item(), "modular_loss": mod_k.item(), "tol_rel": STEP_TOL,
-    }
-    require(counted["modularity_deg"] == 1 and counted["modularity_combined"] == 1, counted)
-    require(all(v <= STEP_TOL for k, v in check.items() if k.endswith("_rel")),
-            f"train step through the kernels vs the plain modularity: {check}")
-    del trainer, model, db, grads_k, grads_p
-    torch.cuda.empty_cache()
+    with plain():
+        loss_p, extra_p, grads_p = loss_and_grads()
+    errs = {n: rel_err(a, b) for n, a, b in zip(names, grads_k, grads_p)}
+    worst = max(errs, key=errs.get)
+    check = {"loss_rel": rel_err(loss_k, loss_p), "grad_rel": errs[worst], "worst_param": worst,
+             "params": len(errs), "loss": loss_k.item(), "tol_rel": STEP_TOL}
+    check.update({f"{k}_rel": rel_err(extra_k[k], extra_p[k]) for k in extra_k})
+    return check, counted
 
-    # ---- the step time at batch 8 (UMEML_GAN_THROUGHPUT.yaml) ---------------
-    trainer, batch, db = trainer_for(**THROUGHPUT)
-    b = len(batch["patient_id"])
 
-    def step():
-        return trainer.train_step(db, train_gan=True, replace_ratio=0.25)
+def time_step(step, kernel_names):
+    """Median and p90 host ms of ``step()`` (synchronised, after warm-up),
+    the device busy ms per step, the device ms of ``kernel_names`` per
+    step, and the peak device memory."""
+    import torch
 
     for _ in range(3):
         step()
@@ -918,20 +1134,191 @@ def phase_train_step(card: str, root: str, out: str):
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() / 2**30
     events = profiled(step, 3)
-    busy = sum(e.self_device_time_total for e in events or ()) / 3 / 1e3 if events else None
-    mod_dev = (sum(e.self_device_time_total for e in events or ()
-                   if "deg_kernel" in e.key or "combined_kernel" in e.key) / 3 / 1e3) if events else None
+    rows = device_rows(events)
+    busy = sum(e.self_device_time_total for e in rows) / 3 / 1e3 if rows else None
+    named = (sum(e.self_device_time_total for e in rows
+                 if any(k in e.key for k in kernel_names)) / 3 / 1e3) if rows else None
     median = float(np.median(times)) * 1e3
-    row = {
-        "phase": "train_step", "card": card, "check_b2": check,
-        "batch": b, "bag_lengths": [int(x) for x in batch["img_mask"].sum(axis=1)],
-        "bag_pad": trainer.cfg.DATASET.BAG_PAD, "hidden": trainer.cfg.MODEL.HIDDEN_DIM,
-        "gan": True, "replace_ratio": 0.25,
+    return {
         "step_ms_median": median, "step_ms_p90": float(np.percentile(times, 90)) * 1e3,
-        "slides_per_s": b / (median / 1e3), "timed_steps": STEP_TIMED,
-        "modularity_device_ms_per_step": mod_dev, "device_busy_ms_per_step": busy,
+        "timed_steps": STEP_TIMED, "kernels_device_ms_per_step": named,
+        "kernels_timed": list(kernel_names), "device_busy_ms_per_step": busy,
+        # every row of the trace summed, for comparison: kernels counted
+        # again under the CPU rows that launched them
+        "all_trace_rows_ms_per_step": sum(e.self_device_time_total for e in events or ()) / 3 / 1e3,
         "device_idle_share": None if busy is None else 1.0 - busy / median,
         "peak_device_gib": peak, "loss_finite": bool(np.isfinite(float(metrics["loss"]))),
+    }
+
+
+def phase_train_step(card: str, root: str, out: str, attention: str = "auto"):
+    """One main step through the kernels against the plain versions (the
+    modularity at ``auto``; the flash attention, forward and backward,
+    under ``flash``), then the step time at batch 8."""
+    import torch
+
+    from imp_torch.engine import build_trainer
+
+    flash = attention == "flash"
+
+    def trainer_for(**overrides):
+        cfg = flagship_cfg(attention, **{"DATASET.ROOT": root, "OUTPUT_DIR": out,
+                                         "VERBOSE": False, "SEED": 1, "DATASET.FOLD": 1,
+                                         "TRAINER.NAME": "MBTRAIN", **overrides})
+        with seeded_bags():
+            trainer = build_trainer(cfg, device=DEVICE)
+            batch = next(iter(trainer.train_loader))
+        return trainer, batch, trainer._device_batch(batch)
+
+    # ---- one main step, kernels vs plain, same dropout draws ----------------
+    trainer, batch, db = trainer_for()
+    model, g = trainer.model, trainer.generator
+    state = g.get_state()
+    named = ([(n, p) for n, p in model.named_parameters() if not n.startswith("gan_discriminator")]
+             if flash else
+             [("p_proto", model.p_proto)] + [("omic_encoder." + n, p)
+                                            for n, p in model.omic_encoder.named_parameters()])
+    names, params = zip(*named)
+    pairs = []
+    hook = model.bottleattn.register_forward_pre_hook(
+        lambda _m, args: pairs.append(torch.cat(greedy_pairs(model, args), dim=1)))
+
+    def loss_and_grads():
+        g.set_state(state)
+        enc = model.encode(db, train=True, generator=g)
+        out_ = model.finish(enc, db, train=True, replace_ratio=0.0, generator=g)
+        loss = trainer.task_loss(out_["logits"], db) + out_["modular_loss"] + out_["loss_kd"]
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if gr is None else gr for p, gr in zip(params, grads)]
+        return loss.detach(), {"modular_loss": out_["modular_loss"].detach()}, grads
+
+    check, counted = grads_check(loss_and_grads, plain_attention if flash else plain_modularity,
+                                 names)
+    hook.remove()
+    check["same_greedy_pairs"] = bool(torch.equal(pairs[0], pairs[1]))
+    require(counted["modularity_deg"] == 1 and counted["modularity_combined"] == 1, counted)
+    if flash:  # six TransLayers with grad: encode's four and the bottleneck's two
+        require(counted["flash_fwd"] == counted["flash_bwd_dq"] == counted["flash_bwd_dkv"] == 6,
+                counted)
+    require(check["same_greedy_pairs"] and check["loss_rel"] <= STEP_TOL
+            and check["grad_rel"] <= STEP_TOL and check["modular_loss_rel"] <= STEP_TOL,
+            f"train step through the kernels vs the plain versions: {check}")
+    del trainer, model, db, params, named
+    torch.cuda.empty_cache()
+
+    # ---- the step time at batch 8 (UMEML_GAN_THROUGHPUT.yaml) ---------------
+    trainer, batch, db = trainer_for(**THROUGHPUT)
+    timing = time_step(lambda: trainer.train_step(db, train_gan=True, replace_ratio=0.25),
+                       MOD_KERNEL_NAMES + (FLASH_KERNEL_NAMES if flash else ()))
+    b = len(batch["patient_id"])
+    row = {
+        "phase": "train_step_flash" if flash else "train_step", "card": card,
+        "attention": attention, "check_b2": check,
+        "batch": b, "bag_lengths": [int(x) for x in batch["img_mask"].sum(axis=1)],
+        "bag_pad": trainer.cfg.DATASET.BAG_PAD, "hidden": trainer.cfg.MODEL.HIDDEN_DIM,
+        "gan": True, "replace_ratio": 0.25, **timing,
+        "slides_per_s": b / (timing["step_ms_median"] / 1e3),
+    }
+    emit(row)
+    require(row["loss_finite"], row)
+    return row
+
+
+def greedy_pairs(model, args):
+    """The bottleneck's greedy (path, omic) pairs for its inputs."""
+    from imp_torch.ops.pairing import cosine_similarity_matrix, greedy_topk_pairs
+
+    return greedy_topk_pairs(cosine_similarity_matrix(args[0], args[1]), model.bottleattn.topk)
+
+
+def transmil_argv(root: str, out: str) -> list:
+    return ["--root", root, "--seed", "1", "--trainer", "TransMIL", "--config-file", TRANSMIL_YAML,
+            "--output-dir", out, "--device", DEVICE, "TPU.ATTENTION", "flash",
+            "OPTIM.MAX_EPOCH", str(TRAIN_EPOCHS_FLASH)]
+
+
+def phase_train_transmil(card: str, root: str, out: str):
+    """TransMIL under flash through the CLI at TransMIL.yaml's width: K1,
+    K2 and K3 twice per train step, K1 twice and K2/K3 never per eval
+    batch; losses finite, a C-index line, a strict reload."""
+    import torch
+
+    from imp_torch.engine.baselines import TransMIL
+    from imp_torch.models import build_model, survival_num_classes
+
+    result, counts, record, seconds, log = run_trainer(
+        transmil_argv(root, out), TransMIL, ("train_step", "test", "_eval_batch"),
+        "chip_smoke_train_transmil_log.txt")
+    steps = [r for r in record if r[0] == "train_step"]
+    tests = [r for r in record if r[0] == "test"]
+    eval_batches = sum(r[0] == "_eval_batch" for r in record)
+    per_step_ok = all(d["flash_fwd"] == d["flash_bwd_dq"] == d["flash_bwd_dkv"] == 2
+                      and c == {"calls": 2, "grad": 2} for _, d, c, _ in steps)
+    eval_k1 = sum(d["flash_fwd"] for _, d, _, _ in tests)
+    eval_k23 = sum(d["flash_bwd_dq"] + d["flash_bwd_dkv"] for _, d, _, _ in tests)
+    losses = [float(m["loss"]) for _, _, _, m in steps]
+    cindex = [line for line in log.splitlines() if line.startswith("* C-Index:")]
+    cfg = transmil_cfg()
+    ckpt_name, ckpt_epoch = reload_last(out, build_model(
+        "transmil", cfg=cfg, num_classes=survival_num_classes(cfg.TASK.NAME, 0), device=DEVICE))
+    row = {
+        "phase": "train_transmil", "card": card, "entry": "python -m imp_torch.tools.train",
+        "argv": transmil_argv("ROOT", "OUT"), "slides": len(TRAIN_LENGTHS),
+        "bag_pad": int(cfg.DATASET.BAG_PAD), "feature": int(cfg.DATASET.PATH.DIM),
+        "batch": int(cfg.DATALOADER.TRAIN.BATCH_SIZE), "epochs": TRAIN_EPOCHS_FLASH,
+        "train_steps": len(steps), "evaluations": len(tests), "eval_batches": eval_batches,
+        "launches": counts, "K1_K2_K3_twice_per_step": per_step_ok,
+        "eval_K1": eval_k1, "eval_K2_K3": eval_k23, "losses_finite": bool(np.isfinite(losses).all()),
+        "last_loss": losses[-1] if losses else None, "cindex_lines": cindex,
+        "result_cindex": result, "checkpoint": ckpt_name, "checkpoint_epoch": ckpt_epoch,
+        "seconds": seconds, "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    emit(row)
+    require(len(steps) > 0 and per_step_ok, f"K1/K2/K3 per TransMIL train step: {row}")
+    require(eval_batches > 0 and eval_k1 == 2 * eval_batches and eval_k23 == 0,
+            f"K1/K2/K3 per TransMIL eval batch: {row}")
+    require(counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 2 * len(steps), row)
+    require(row["losses_finite"] and result is not None and np.isfinite(result)
+            and len(cindex) >= TRAIN_EPOCHS_FLASH + 1, f"TransMIL training: {row}")
+    require(ckpt_epoch == TRAIN_EPOCHS_FLASH, f"last checkpoint is epoch {ckpt_epoch}")
+    return row, counts
+
+
+def phase_train_step_transmil(card: str, root: str, out: str):
+    """One TransMIL step at a full 10 000-patch slide (10 001 tokens with
+    cls) through the kernels against the plain flash attention (loss and
+    every parameter gradient, same dropout draws), then its step time."""
+    import torch
+
+    from imp_torch.engine import build_trainer
+
+    cfg = transmil_cfg(**{"DATASET.ROOT": root, "OUTPUT_DIR": out, "VERBOSE": False, "SEED": 1,
+                          "DATASET.FOLD": 1, "TRAINER.NAME": "TransMIL"})
+    with seeded_bags():
+        trainer = build_trainer(cfg, device=DEVICE)
+        batch = max((b for loader in (trainer.train_loader, trainer.val_loader, trainer.test_loader)
+                     if loader is not None for b in loader),
+                    key=lambda b: int(b["img_mask"].sum()))
+    db = trainer._device_batch(batch)
+    model, g = trainer.model, trainer.generator
+    state = g.get_state()
+    names, params = zip(*model.named_parameters())
+
+    def loss_and_grads():
+        g.set_state(state)
+        loss = trainer.task_loss(model(db, train=True, generator=g), db)
+        return loss.detach(), {}, torch.autograd.grad(loss, params)
+
+    check, counted = grads_check(loss_and_grads, plain_attention, names)
+    require(counted["flash_fwd"] == counted["flash_bwd_dq"] == counted["flash_bwd_dkv"] == 2, counted)
+    require(check["loss_rel"] <= STEP_TOL and check["grad_rel"] <= STEP_TOL,
+            f"TransMIL step through the kernels vs the plain flash attention: {check}")
+    timing = time_step(lambda: trainer.train_step(db), FLASH_KERNEL_NAMES)
+    row = {
+        "phase": "train_step_transmil", "card": card, "check": check,
+        "batch": len(batch["patient_id"]), "bag_valid": int(batch["img_mask"].sum()),
+        "tokens": int(cfg.DATASET.BAG_PAD) + 1, **timing,
+        "slides_per_s": len(batch["patient_id"]) / (timing["step_ms_median"] / 1e3),
     }
     emit(row)
     require(row["loss_finite"], row)
@@ -963,6 +1350,7 @@ def main() -> int:
     })
 
     krows = phase_kernel(card)
+    brows = phase_flash_bwd(card)
     mrows = phase_modularity(card)
     with tempfile.TemporaryDirectory(prefix="imp_torch_smoke_") as tmp:
         _, counts = phase_serve("flash", card, tmp)
@@ -970,6 +1358,10 @@ def main() -> int:
         root = make_train_tree(os.path.join(tmp, "tree"))
         _, train_counts = phase_train(card, root, os.path.join(tmp, "train"))
         phase_train_step(card, root, os.path.join(tmp, "train_step"))
+        _, transmil_counts = phase_train_transmil(card, root, os.path.join(tmp, "transmil"))
+        phase_train_step_transmil(card, root, os.path.join(tmp, "transmil_step"))
+        phase_train(card, root, os.path.join(tmp, "train_flash"), attention="flash")
+        phase_train_step(card, root, os.path.join(tmp, "train_step_flash"), attention="flash")
 
     def per_forward(key):
         return sum(krows[s][key] * n for s, n in FLASH_PER_FORWARD.items())
@@ -981,6 +1373,15 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for (k, _), r in mrows.items() if k == name),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
+        }
+
+    def flash_bwd_entry(name):
+        main = brows[(name, BWD_MAIN_SHAPE)]  # TransMIL's bag
+        return {
+            "name": name, **KERNEL_INFO[name], "launches": transmil_counts[name],
+            "max_abs_err": max(r["max_abs_err"] for (k, _), r in brows.items() if k == name),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"], "pair": main["pair"],
         }
 
     emit({"kernels": [
@@ -995,6 +1396,7 @@ def main() -> int:
             else "operations",
             "library_ms": per_forward("library_ms"),
         },
+        *(flash_bwd_entry(n) for n in ("flash_bwd_dq", "flash_bwd_dkv")),
         modularity_entry("modularity_deg"),
         modularity_entry("modularity_combined"),
     ]})

@@ -1,8 +1,9 @@
-"""Carry UMEML_GAN weights from the JAX package's flax tree to the port.
+"""Carry weights from the JAX package's flax trees to the port.
 
-:func:`umeml_gan_state_dict` takes the flax param tree flattened to
+:func:`umeml_gan_state_dict` (UMEML_GAN) and :func:`mil_state_dict`
+(``TransMIL_NET``, ``ABMIL_NET``) take a flax param tree flattened to
 ``"params/path_net/kernel"``-style keys with numpy values (flatten it with
-flax on the JAX side: this package needs no flax) and returns the port's
+flax on the JAX side: this package needs no flax) and return the port's
 ``state_dict``:
 
 * every ``TorchLinear`` kernel (flax ``[in, out]``) is transposed into an
@@ -12,11 +13,13 @@ flax on the JAX side: this package needs no flax) and returns the port's
 * list members ``name_i`` become ``name.i`` (``nn.ModuleList``);
 * ``GroupedLinear`` (``omic_net``), the packed MHA ``in_proj_weight``
   (``[e, 3e]`` in both), ``res_conv``, ``p_proto``, the encoder tokens and
-  ``bottle_tokens`` carry over as they are.
+  ``bottle_tokens`` carry over as they are, and so do TransMIL's
+  ``cls_token``, its PPEG convs (``pos_layer/proj{,1,2}_{kernel,bias}``) and
+  its final ``mil/LayerNorm_0`` (the port's ``mil.norm``).
 
 Any key left over or missing in either direction, or a shape that does not
-fit, raises: the expected keys come from a UMEML_GAN built at the widths
-the tree itself implies.
+fit, raises: the expected keys come from a model built (on the meta device)
+at the widths the tree itself implies.
 """
 
 from __future__ import annotations
@@ -54,6 +57,12 @@ def _torch_key(flax_key: str):
     return ".".join(out + [leaf]), transpose
 
 
+def _shape(flat: Dict[str, np.ndarray], key: str):
+    if key not in flat:
+        raise KeyError(f"flax tree lacks {key!r}")
+    return np.shape(flat[key])
+
+
 def _expected(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Size]:
     """Key -> shape of the port's UMEML_GAN at the widths ``flat`` implies
     (hidden and prototypes from ``p_proto``, registers from
@@ -62,9 +71,7 @@ def _expected(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Size]:
     from .models.umeml_gan import UMEML_GAN
 
     def shape(key):
-        if key not in flat:
-            raise KeyError(f"flax tree lacks {key!r}")
-        return np.shape(flat[key])
+        return _shape(flat, key)
 
     _, n_proto, hidden = shape("params/p_proto")
     gmax = shape("params/omic_net/kernel")[1]
@@ -80,8 +87,32 @@ def _expected(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Size]:
     return {k: v.shape for k, v in model.state_dict().items()}
 
 
+def _mil_expected(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Size]:
+    """Key -> shape of the port's TransMIL_NET (the tree has
+    ``mil/cls_token``) or ABMIL_NET, with the classes from ``classifier``,
+    the feature width from the first Linear and ABMIL's size from ``rho``."""
+    from .models.nets import ABMIL_NET, TransMIL_NET
+
+    num_classes = _shape(flat, "params/classifier/bias")[0]
+    with torch.device("meta"):
+        if "params/mil/cls_token" in flat:
+            model = TransMIL_NET(num_classes, _shape(flat, "params/mil/_fc1/kernel")[0])
+        else:
+            size = {256: "small", 384: "big"}[_shape(flat, "params/mil/rho/bias")[0]]
+            model = ABMIL_NET(num_classes, _shape(flat, "params/mil/fc/kernel")[0], size)
+    return {k: v.shape for k, v in model.state_dict().items()}
+
+
 def umeml_gan_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    expected = _expected(flat)
+    return _state_dict(flat, _expected(flat))
+
+
+def mil_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return _state_dict(flat, _mil_expected(flat))
+
+
+def _state_dict(flat: Dict[str, np.ndarray],
+                expected: Dict[str, torch.Size]) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for key, value in flat.items():
         tkey, transpose = _torch_key(key)

@@ -4,8 +4,9 @@ TRAINER_REGISTRY = Registry("TRAINER")
 
 
 def build_trainer(cfg, device="cuda"):
-    """The trainer ``cfg.TRAINER.NAME`` on ``device`` (the port has MBTRAIN)."""
-    from . import mbtrain  # noqa: F401  (register)
+    """The trainer ``cfg.TRAINER.NAME`` on ``device`` (the port has MBTRAIN,
+    ABMIL and TransMIL)."""
+    from . import baselines, mbtrain  # noqa: F401  (register)
     from ..utils.registry import check_availability
 
     check_availability(cfg.TRAINER.NAME, list(TRAINER_REGISTRY.registered_names()))

@@ -24,29 +24,30 @@ and restored) and backpropagates ``<hp, g_hp> + <ho, g_ho> + w·sim``, as the
 JAX package's two-pass linearisation does; a fresh Adam(CCA_LR) steps once
 per group.
 
+Under ``TPU.ATTENTION=flash`` every TransLayer call with grad runs the flash
+forward K1 and, in the backward, K2 and K3 — the CCA epoch's recompute
+pass included; evaluation and the CCA value pass run K1 only.
+
 Not ported here (ROADMAP.md §A): ``model_name="umeml"`` and
-``umeml_gan_plot``, ``DATASET.USE_BSM``, ``TRAINER.PREC`` other than fp32,
-``MODEL.INIT_WEIGHTS`` and training under ``TPU.ATTENTION=flash`` (K2/K3)
-raise; ``test_new`` (CPTAC) and the importance ``.txt`` dumps and PNG plots
-are absent.  ``TPU.REMAT``/``TPU.DONATE`` need no counterpart.
+``umeml_gan_plot``, ``DATASET.USE_BSM``, ``TRAINER.PREC`` other than fp32
+and ``MODEL.INIT_WEIGHTS`` raise; ``test_new`` (CPTAC) and the importance
+``.txt`` dumps and PNG plots are absent.  ``TPU.REMAT``/``TPU.DONATE`` need
+no counterpart.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
-import time
-
 import numpy as np
 import torch
 
 from . import TRAINER_REGISTRY
-from .trainer import TrainerBase, device_batch
+from .trainer import TrainerBase, deferred, device_batch
 from ..losses.survival import cca_loss, similarity_alignment_loss
-from ..models import build_model, resolve_attention, survival_num_classes
+from ..models import build_model, survival_num_classes
 from ..optim import build_optimizer, gan_optimizer
 from ..optim.builders import Chain, Optimizer, ScaleByAdam, ScaleByLearningRate
-from ..utils.meters import AverageMeter, MetricMeter
 from ..utils.tools import count_num_param
 
 GEN_KEYS = ("gan_generator_p2o", "gan_generator_o2p")
@@ -63,10 +64,6 @@ def get_omic_delete_mask(batch_size, num_features, ratio, seed=None):
     return mask
 
 
-def _deferred(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: not ported yet, see ROADMAP.md §A")
-
-
 @TRAINER_REGISTRY.register()
 class MBTRAIN(TrainerBase):
     """Trainer for UMEML_GAN."""
@@ -74,18 +71,13 @@ class MBTRAIN(TrainerBase):
     def check_cfg(self, cfg):
         assert cfg.MODEL.NAME in ("umeml", "umeml_gan", "umeml_gan_plot")
         if cfg.MODEL.NAME != "umeml_gan":
-            raise _deferred(f"MODEL.NAME={cfg.MODEL.NAME!r} under MBTRAIN")
+            raise deferred(f"MODEL.NAME={cfg.MODEL.NAME!r} under MBTRAIN")
         if cfg.DATASET.USE_BSM:
-            raise _deferred("DATASET.USE_BSM (the chunk-averaged estimator)")
+            raise deferred("DATASET.USE_BSM (the chunk-averaged estimator)")
         if cfg.TRAINER.PREC != "fp32":
-            raise _deferred(f"TRAINER.PREC={cfg.TRAINER.PREC!r}")
+            raise deferred(f"TRAINER.PREC={cfg.TRAINER.PREC!r}")
         if cfg.MODEL.INIT_WEIGHTS:
-            raise _deferred("MODEL.INIT_WEIGHTS")
-        if resolve_attention(cfg.TPU.ATTENTION) == "flash":
-            raise NotImplementedError(
-                "MBTRAIN under TPU.ATTENTION=flash needs the flash-attention backward: "
-                "ROADMAP.md item 'training under TPU.ATTENTION=flash (K2/K3)'"
-            )
+            raise deferred("MODEL.INIT_WEIGHTS")
 
     # ------------------------------------------------------------------ #
     # model and optimizers                                                 #
@@ -193,44 +185,8 @@ class MBTRAIN(TrainerBase):
             self.after_epoch()
         return self.after_train()
 
-    def run_epoch(self, train_gan: bool = False, replace_ratio: float = 0.0):
-        """One training epoch; the step metrics are read back (which waits
-        for the card) only at print points and at the end."""
-        losses, batch_time = MetricMeter(), AverageMeter()
-        num_batches = len(self.train_loader)
-        n_slides = 0
-        pending = []
-
-        def flush():
-            for bi, metrics in pending:
-                metrics = {k: float(v) for k, v in metrics.items()}
-                if not np.isfinite(metrics["loss"]):
-                    raise FloatingPointError("Loss is infinite or NaN!")
-                losses.update(metrics)
-                for name, value in metrics.items():
-                    self.writer.write_scalar("train/" + name, value, self.epoch * num_batches + bi)
-            pending.clear()
-
-        end = time.time()
-        for batch_idx, batch in enumerate(self.train_loader):
-            pending.append((batch_idx, self.train_step(self._device_batch(batch), train_gan,
-                                                       replace_ratio)))
-            n_slides += len(batch["patient_id"])
-            batch_time.update(time.time() - end)
-            freq = self.cfg.TRAIN.PRINT_FREQ
-            if (batch_idx + 1) % freq == 0 or num_batches < freq:
-                flush()
-                print(
-                    f"epoch [{self.epoch + 1}/{self.max_epoch}] "
-                    f"batch [{batch_idx + 1}/{num_batches}] "
-                    f"time {batch_time.val:.3f} ({batch_time.avg:.3f}) "
-                    f"{losses} lr {self.get_current_lr():.4e} "
-                    f"gan={train_gan} rr={replace_ratio:.3f}"
-                )
-            end = time.time()
-        flush()
-        self.writer.write_scalar("train/slides_per_sec", n_slides / max(batch_time.sum, 1e-9),
-                                 self.epoch)
+    def _log_extras(self, train_gan: bool, replace_ratio: float):
+        return [f"gan={train_gan}", f"rr={replace_ratio:.3f}"]
 
     def _cca_forward(self, db, train: bool):
         """(h_path, h_omic flattened per slide, similarity-alignment loss)."""
@@ -315,43 +271,25 @@ class MBTRAIN(TrainerBase):
         without_ratio = max(float(without_ratio), 0.0)
         insample_ratio = max(float(insample_ratio), 0.0)
 
-        self.evaluator.reset()
-        if split is None:
-            split = self.cfg.TEST.SPLIT
-        if split == "val" and self.val_loader is not None:
-            loader = self.val_loader
-        else:
-            split = "test"
-            loader = self.test_loader
-
+        split, loader = self._eval_split(split)
         # sample-level omics removal, seed 42 (ref mbtrain.py:303-310)
         num_samples = len(loader.dataset)
-        indexes_without = np.random.RandomState(42).choice(
-            num_samples, int(num_samples * without_ratio), replace=False
-        )
+        self._ablation = {
+            "without": np.random.RandomState(42).choice(
+                num_samples, int(num_samples * without_ratio), replace=False),
+            "insample_ratio": insample_ratio,
+            "start": 0,  # the first sample of the next batch
+        }
+        return super().test(split)
 
-        print(f"Evaluate on the *{split}* set")
-        batch_start = 0
-        pending = []  # read the logits back once, after the loop
-        with torch.no_grad():
-            for batch_index, batch in enumerate(loader):
-                b = batch["img"].shape[0]
-                without = np.isin(np.arange(batch_start, batch_start + b),
-                                  indexes_without).astype(np.float32)
-                batch_start += b
-                seed = (10000 if split == "val" else 20000) + batch_index
-                insample = get_omic_delete_mask(b, batch["mol"].shape[1], insample_ratio,
-                                                seed=seed)
-                db = self._device_batch(batch, without_omic=without, insample_mask=insample)
-                pending.append((self.model(db, train=False)["logits"], batch))
-        for logits, batch in pending:
-            self.process_eval_batch(logits.cpu().numpy(), batch)
-
-        results = self.evaluator.evaluate()
-        for k, v in results.items():
-            if self.writer:
-                self.writer.write_scalar(f"{split}/{k}", v, self.epoch)
-        return list(results.values())[0]
+    def _eval_batch(self, batch: Dict, split: str, batch_index: int) -> Dict:
+        ab = self._ablation
+        b = batch["img"].shape[0]
+        without = np.isin(np.arange(ab["start"], ab["start"] + b), ab["without"]).astype(np.float32)
+        ab["start"] += b
+        seed = (10000 if split == "val" else 20000) + batch_index
+        insample = get_omic_delete_mask(b, batch["mol"].shape[1], ab["insample_ratio"], seed=seed)
+        return self._device_batch(batch, without_omic=without, insample_mask=insample)
 
     # ------------------------------------------------------------------ #
     # state                                                                #

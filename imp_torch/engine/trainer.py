@@ -1,8 +1,13 @@
 """Trainer engine — the PyTorch counterpart of ``imp_tpu/engine/trainer.py``
-(reference ``medmm/engine/trainer.py``): the epoch loop's hooks, val
+(reference ``medmm/engine/trainer.py``): the generic epoch loop
+(``train`` → ``run_epoch`` → ``after_epoch``), evaluation (``test``), val
 selection, best/last checkpoints and the ``* metric: X%`` log lines
-``tools/parse_test_res.py`` scrapes.  The port's one trainer is MBTRAIN
-(survival, ``Survival_UMEML``); its epoch loop is ``MBTRAIN.train``.
+``tools/parse_test_res.py`` scrapes.
+
+Two trainers stand on :class:`TrainerBase`: MBTRAIN (``engine/mbtrain.py``,
+UMEML_GAN with its own curriculum loop) and :class:`StandardTrainer`, the
+one-optimizer loop of the MIL baselines (``engine/baselines.py``: ABMIL,
+TransMIL).  Both are survival trainers.
 
 One process drives one device (``cuda`` unless the caller passes
 ``device="cpu"``); the JAX package's mesh, sequence parallelism and device
@@ -15,15 +20,16 @@ from __future__ import annotations
 import datetime
 import os.path as osp
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..data import DataManager
 from ..evaluation import build_evaluator
 from ..losses.survival import build_loss, hazards_to_survival
-from ..optim import lr_at_epoch
+from ..optim import build_optimizer, lr_at_epoch
 from ..utils.checkpoint import (
     best_checkpoint_path,
     load_checkpoint,
@@ -31,6 +37,8 @@ from ..utils.checkpoint import (
     save_checkpoint,
 )
 from ..utils.logger import MetricWriter, mkdir_if_missing
+from ..utils.meters import AverageMeter, MetricMeter
+from ..utils.tools import count_num_param
 
 ARRAY_KEYS = (
     "img",
@@ -80,6 +88,12 @@ def make_task_loss(cfg) -> Callable:
             logits[:, :1], batch["survival_month"], batch["censorship"]
         )
     raise ValueError(f"Unknown TASK.LOSS: {name}")
+
+
+def deferred(what: str, item: str = "") -> NotImplementedError:
+    """The error of an option the port does not have yet, naming its
+    ROADMAP.md item."""
+    return NotImplementedError(f"{what}: not ported yet, see ROADMAP.md §A{item}")
 
 
 class TrainerBase:
@@ -134,6 +148,97 @@ class TrainerBase:
     def load_state_dict(self, state: Dict) -> None:
         raise NotImplementedError
 
+    def train_step(self, db: Dict[str, torch.Tensor], **kwargs) -> Dict[str, torch.Tensor]:
+        """One update on a device batch; returns device scalars (``loss``)."""
+        raise NotImplementedError
+
+    def _device_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        return device_batch(batch, self.device)
+
+    def _log_extras(self, **step_kwargs) -> List[str]:
+        """Fields a subclass appends to the epoch's progress lines."""
+        return []
+
+    # -- the generic loop ------------------------------------------------------
+    def train(self, *args, **kwargs):
+        """The epoch loop.  The positional arguments are the CLI's omics
+        ablation ratios, which only MBTRAIN reads."""
+        self.before_train()
+        for self.epoch in range(self.start_epoch, self.max_epoch):
+            self.before_epoch()
+            self.run_epoch()
+            self.after_epoch()
+        return self.after_train()
+
+    def run_epoch(self, **step_kwargs):
+        """One training epoch of :meth:`train_step` (``step_kwargs`` passed
+        on); the step metrics are read back (which waits for the card) only
+        at print points and at the end."""
+        losses, batch_time = MetricMeter(), AverageMeter()
+        num_batches = len(self.train_loader)
+        n_slides = 0
+        pending = []
+
+        def flush():
+            for bi, metrics in pending:
+                metrics = {k: float(v) for k, v in metrics.items()}
+                if not np.isfinite(metrics["loss"]):
+                    raise FloatingPointError("Loss is infinite or NaN!")
+                losses.update(metrics)
+                for name, value in metrics.items():
+                    self.writer.write_scalar("train/" + name, value, self.epoch * num_batches + bi)
+            pending.clear()
+
+        end = time.time()
+        for batch_idx, batch in enumerate(self.train_loader):
+            pending.append((batch_idx, self.train_step(self._device_batch(batch), **step_kwargs)))
+            n_slides += len(batch["patient_id"])
+            batch_time.update(time.time() - end)
+            freq = self.cfg.TRAIN.PRINT_FREQ
+            if (batch_idx + 1) % freq == 0 or num_batches < freq:
+                flush()
+                print(" ".join([
+                    f"epoch [{self.epoch + 1}/{self.max_epoch}]",
+                    f"batch [{batch_idx + 1}/{num_batches}]",
+                    f"time {batch_time.val:.3f} ({batch_time.avg:.3f})",
+                    f"{losses}",
+                    f"lr {self.get_current_lr():.4e}",
+                ] + self._log_extras(**step_kwargs)))
+            end = time.time()
+        flush()
+        self.writer.write_scalar("train/slides_per_sec", n_slides / max(batch_time.sum, 1e-9),
+                                 self.epoch)
+
+    def _eval_split(self, split: Optional[str]):
+        """(split, loader): ``val`` where there is a val set, else ``test``."""
+        if split is None:
+            split = self.cfg.TEST.SPLIT
+        if split == "val" and self.val_loader is not None:
+            return "val", self.val_loader
+        return "test", self.test_loader
+
+    def _eval_batch(self, batch: Dict, split: str, batch_index: int) -> Dict[str, torch.Tensor]:
+        return self._device_batch(batch)
+
+    def test(self, split: Optional[str] = None, **kwargs) -> float:
+        """Evaluate on ``split``; returns the evaluator's first metric.  The
+        logits are read back once, after the loop."""
+        self.evaluator.reset()
+        split, loader = self._eval_split(split)
+        print(f"Evaluate on the *{split}* set")
+        pending = []
+        with torch.no_grad():
+            for batch_index, batch in enumerate(loader):
+                out = self.model(self._eval_batch(batch, split, batch_index), train=False)
+                pending.append((out["logits"] if isinstance(out, dict) else out, batch))
+        for logits, batch in pending:
+            self.process_eval_batch(logits.cpu().numpy(), batch)
+        results = self.evaluator.evaluate()
+        for k, v in results.items():
+            if self.writer:
+                self.writer.write_scalar(f"{split}/{k}", v, self.epoch)
+        return list(results.values())[0]
+
     # -- the epoch loop's hooks ------------------------------------------------
     def before_train(self):
         directory = self.cfg.RESUME or self.output_dir
@@ -180,8 +285,13 @@ class TrainerBase:
         return result
 
     def process_eval_batch(self, logits: np.ndarray, batch: Dict) -> None:
-        self.evaluator.process(batch["patient_id"], logits, batch["censorship"],
-                               batch["survival_month"])
+        if type(self.evaluator).__name__ == "Survival_UMEML":
+            self.evaluator.process(batch["patient_id"], logits, batch["censorship"],
+                                   batch["survival_month"])
+        else:  # the baselines' Survival evaluator takes the survival curve
+            hazards = 1.0 / (1.0 + np.exp(-np.asarray(logits, np.float64)))
+            self.evaluator.process(np.cumprod(1.0 - hazards, axis=1), batch["censorship"],
+                                   batch["survival_month"])
 
     def get_current_lr(self) -> float:
         return lr_at_epoch(self.cfg.OPTIM, self.epoch)
@@ -200,3 +310,54 @@ class TrainerBase:
         self.load_state_dict(load_checkpoint(path, self.device))
         print(f"Loaded model weights from {path}")
 
+
+
+class StandardTrainer(TrainerBase):
+    """The one-optimizer trainer of nets called as ``model(batch, train,
+    generator) -> logits`` (the MIL baselines; reference
+    ``engine/{abmil,transmil}.py``): one ``build_optimizer`` chain over every
+    parameter, the task loss, and a state of model, optimizer and epoch."""
+
+    def build_network(self) -> nn.Module:
+        """The net on ``self.device``, initialised from ``cfg.SEED``."""
+        raise NotImplementedError
+
+    def check_cfg(self, cfg):
+        if cfg.TASK.NAME != "Survival":
+            raise deferred(f"TASK.NAME={cfg.TASK.NAME!r} (the classification evaluators)", "6")
+        if cfg.OPTIM.GRAD_ACCUM > 1:
+            raise deferred("OPTIM.GRAD_ACCUM > 1", "6")
+        if cfg.MODEL.INIT_WEIGHTS:
+            raise deferred("MODEL.INIT_WEIGHTS")
+        if cfg.TRAINER.PREC != "fp32":
+            raise deferred(f"TRAINER.PREC={cfg.TRAINER.PREC!r}")
+        if "seq" in cfg.TPU.MESH_AXES:
+            raise deferred("sequence parallelism (TPU.MESH_AXES with 'seq')", "8")
+
+    def build_model(self):
+        self.model = self.build_network()
+        # the JAX trainer's param_labels (frozen subtrees) and mutable
+        # collections (BatchNorm statistics) belong to nets of item 6
+        if any(isinstance(m, nn.modules.batchnorm._BatchNorm) for m in self.model.modules()):
+            raise deferred("nets with mutable state (batch statistics)", "6")
+        print(f"# params: {count_num_param(self.model):,}")
+        self.optimizer = build_optimizer(self.cfg.OPTIM, list(self.model.parameters()),
+                                         max(1, len(self.train_loader)))
+
+    def train_step(self, db: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        logits = self.model(db, train=True, generator=self.generator)
+        loss = self.task_loss(logits, db)
+        self.optimizer.step(torch.autograd.grad(loss, self.optimizer.params, allow_unused=True))
+        return {"loss": loss.detach()}
+
+    def state_dict(self) -> Dict:
+        return {
+            "model": self.model.state_dict(),
+            "opt_state": self.optimizer.state_dict(),
+            "epoch": self.epoch + 1,
+            "val_result": float(self.best_result) if np.isfinite(self.best_result) else -1.0,
+        }
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["opt_state"])

@@ -1,9 +1,8 @@
-"""The UMEML survival evaluator — the counterpart of
-``imp_tpu/evaluation/evaluators.py::Survival_UMEML`` (reference
-``medmm/evaluation/evaluator.py:343-428``), with the same ``* cindex: X%``
-stdout lines that ``tools/parse_test_res.py`` scrapes.  The other
-evaluators (the baselines' ``Survival``, the scikit-learn classification
-metrics) come with the slices that use them."""
+"""The survival evaluators — the counterparts of
+``imp_tpu/evaluation/evaluators.py::{Survival, Survival_UMEML}`` (reference
+``medmm/evaluation/evaluator.py:293-428``), with the same ``* C-Index:`` /
+``* cindex:`` stdout lines that ``tools/parse_test_res.py`` scrapes.  The
+scikit-learn classification metrics come with the slice that uses them."""
 
 from __future__ import annotations
 
@@ -29,6 +28,41 @@ class EvaluatorBase:
 
     def evaluate(self):
         raise NotImplementedError
+
+
+@EVALUATOR_REGISTRY.register()
+class Survival(EvaluatorBase):
+    """C-index over risk = -sum(S) (reference ``evaluator.py:293-341``);
+    the trainer passes the survival curve S."""
+
+    def __init__(self, cfg, **kwargs):
+        super().__init__(cfg)
+        self.reset()
+
+    def reset(self):
+        self._total = 0
+        self._all_risk_scores = []
+        self._all_censorships = []
+        self._all_event_times = []
+
+    def process(self, S, censorship, survival_month):
+        censorship = np.asarray(censorship)
+        self._total += int(censorship.shape[0])
+        self._all_risk_scores.extend((-np.asarray(S).sum(axis=1)).tolist())
+        self._all_censorships.extend(censorship.tolist())
+        self._all_event_times.extend(np.asarray(survival_month).tolist())
+
+    def evaluate(self):
+        results = OrderedDict()
+        c_index = 100.0 * concordance_index_censored(
+            (1 - np.array(self._all_censorships)).astype(bool),
+            np.array(self._all_event_times),
+            np.array(self._all_risk_scores),
+            tied_tol=1e-08,
+        )[0]
+        results["c_index"] = c_index
+        print("=> result\n" f"* total: {self._total:,}\n" f"* C-Index: {c_index:.1f}%\n")
+        return results
 
 
 @EVALUATOR_REGISTRY.register()

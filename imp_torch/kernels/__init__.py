@@ -5,7 +5,8 @@ interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  A library is built at first use, named by a hash of its source
 and flags, under ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``); a later run with the same source loads it again.  Several
-kernels may share one source (K4 and K5 live in ``modularity.cu``).
+kernels may share one source and its library (K2 and K3 live in
+``flash_bwd.cu``, K4 and K5 in ``modularity.cu``).
 :func:`build` starts one ``nvcc`` per source, all at once.
 
 Each wrapper calls :func:`count_launch` where it launches its kernel and
@@ -41,6 +42,14 @@ KERNELS = {
     "flash_fwd": (
         "flash_fwd.cu",
         {"imp_flash_fwd_f32": [_P] * 6 + [_I] * 5 + [_P]},
+    ),
+    "flash_bwd_dq": (
+        "flash_bwd.cu",
+        {"imp_flash_bwd_dq_f32": [_P] * 8 + [_I] * 5 + [_P]},
+    ),
+    "flash_bwd_dkv": (
+        "flash_bwd.cu",
+        {"imp_flash_bwd_dkv_f32": [_P] * 9 + [_I] * 5 + [_P]},
     ),
     "modularity_deg": (
         "modularity.cu",
@@ -85,10 +94,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The shared library of kernel ``name``: one per source, so kernels
+    that share a source share a build."""
     source = CSRC / KERNELS[name][0]
     digest = hashlib.sha256(source.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:

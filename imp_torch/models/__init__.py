@@ -1,13 +1,19 @@
 """Model registry — the PyTorch counterpart of ``imp_tpu/models/__init__.py``.
-Same config names; this slice registers ``umeml_gan``."""
+Same config names; the port registers ``umeml_gan``, ``transmil`` and
+``abmil``.  Every builder turns TF32 off, initialises the model from a
+``torch.Generator`` (default: seed 0) without touching the caller's RNG,
+and returns it on ``device`` in eval mode."""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
+from torch import nn
 
+from ..ops.attention import init_parameters_
 from ..utils.registry import Registry
+from .nets import ABMIL_NET, TransMIL_NET
 from .umeml_gan import UMEML_GAN
 
 MODEL_REGISTRY = Registry("MODEL")
@@ -30,6 +36,24 @@ def resolve_attention(value: str) -> str:
     return _ATTENTION[value]
 
 
+def _build(make: Callable[[], nn.Module], device, generator: Optional[torch.Generator]):
+    """``make()`` initialised from ``generator`` on ``device``, in eval mode."""
+    # fp32 means fp32: cuDNN's TF32 default would run the depthwise convs
+    # (the k=33 residual, PPEG's 7/5/3) in TF32, and the Newton-Schulz
+    # pseudo-inverse of the Nyström path diverges from the reference
+    # without full-fp32 products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    # construction draws a default init from the global RNG; fork it so
+    # building a model leaves the caller's RNG state untouched
+    with torch.random.fork_rng(devices=[]):
+        model = make()
+    init_parameters_(model, generator)
+    return model.to(device).eval()
+
+
 @MODEL_REGISTRY.register_as("umeml_gan")
 def build_umeml_gan(
     cfg,
@@ -38,24 +62,14 @@ def build_umeml_gan(
     device="cuda",
     generator: Optional[torch.Generator] = None,
 ) -> UMEML_GAN:
-    """UMEML_GAN from ``cfg`` and the gene groups, initialised from
-    ``generator`` (default: seed 0) and moved to ``device``, in eval mode."""
+    """UMEML_GAN from ``cfg`` and the gene groups."""
     if cfg.MODEL.UMEML.PROTO_INIT != "uniform":
         raise NotImplementedError(
             f"MODEL.UMEML.PROTO_INIT={cfg.MODEL.UMEML.PROTO_INIT!r} needs the "
             "PLIP text tower: not ported yet (ROADMAP.md §A, CLIP/PLIP towers)"
         )
-    # fp32 means fp32: cuDNN's TF32 default would run the k=33 depthwise
-    # residual conv in TF32, and the Newton-Schulz pseudo-inverse of the
-    # Nyström path diverges from the reference without full-fp32 products
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    # nn.Linear draws a default init from the global RNG at construction;
-    # fork it so building a model leaves the caller's RNG state untouched
-    with torch.random.fork_rng(devices=[]):
-        model = UMEML_GAN(
+    return _build(
+        lambda: UMEML_GAN(
             num_classes=num_classes,
             gene_group_indexes=gene_group_indexes,
             feat_dim=cfg.DATASET.PATH.DIM,
@@ -68,9 +82,32 @@ def build_umeml_gan(
             topk=cfg.MODEL.UMEML.TOPK,
             kd_t=float(cfg.MODEL.UMEML.KD_T),
             attention=resolve_attention(cfg.TPU.ATTENTION),
-        )
-    model.reset_parameters(generator)
-    return model.to(device).eval()
+        ),
+        device, generator,
+    )
+
+
+@MODEL_REGISTRY.register_as("transmil")
+def build_transmil(cfg, num_classes: int, device="cuda",
+                   generator: Optional[torch.Generator] = None) -> TransMIL_NET:
+    """TransMIL over ``DATASET.PATH.DIM`` features, its TransLayers by
+    ``TPU.ATTENTION``."""
+    return _build(
+        lambda: TransMIL_NET(num_classes, cfg.DATASET.PATH.DIM,
+                             attention=resolve_attention(cfg.TPU.ATTENTION)),
+        device, generator,
+    )
+
+
+@MODEL_REGISTRY.register_as("abmil")
+def build_abmil(cfg, num_classes: int, device="cuda",
+                generator: Optional[torch.Generator] = None) -> ABMIL_NET:
+    """ABMIL over ``DATASET.PATH.DIM`` features at ``MODEL.SIZE`` (dropout
+    0.25, as the JAX trainer builds it)."""
+    return _build(
+        lambda: ABMIL_NET(num_classes, cfg.DATASET.PATH.DIM, cfg.MODEL.SIZE),
+        device, generator,
+    )
 
 
 def build_model(name: str, **kwargs):

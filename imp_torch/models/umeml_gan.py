@@ -29,7 +29,13 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..losses.survival import kd_loss
-from ..ops.attention import ATTENTION_IMPLS, TransLayer, dropout, init_linear_
+from ..ops.attention import (
+    ATTENTION_IMPLS,
+    TransLayer,
+    dropout,
+    init_parameters_,
+    train_generator,
+)
 from ..ops.modularity import compute_modularity_pair
 from .layers import (
     Block,
@@ -143,39 +149,19 @@ class UMEML_GAN(nn.Module):
         self.p_encoder_token.uniform_(0.0, 1.0, generator=generator)
         self.o_encoder_token.uniform_(0.0, 1.0, generator=generator)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Draw every parameter from the JAX package's init distributions
-        with ``generator`` (the same seed gives the same weights on any
-        device; the values differ from a JAX init of the same seed)."""
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                init_linear_(m, generator)
-            elif isinstance(m, nn.LayerNorm):
-                m.reset_parameters()
-            if hasattr(m, "reset_own_parameters"):
-                m.reset_own_parameters(generator)
+        init_parameters_(self, generator)
 
     # ------------------------------------------------------------------ #
     # encoder: bag + omics -> normalized token sequences                  #
     # ------------------------------------------------------------------ #
-    @staticmethod
-    def _train_generator(train: bool, generator: Optional[torch.Generator]):
-        """The generator that drives training's randomness, None in eval."""
-        if not train:
-            return None
-        if generator is None:
-            raise ValueError("train=True draws dropout and the replacement from an "
-                             "explicit torch.Generator: pass generator=")
-        return generator
-
     def encode(
         self,
         batch: Dict[str, torch.Tensor],
         train: bool = False,
         generator: Optional[torch.Generator] = None,
     ) -> Dict:
-        g = self._train_generator(train, generator)
+        g = train_generator(train, generator)
         x_path = batch["img"]
         mask = batch.get("img_mask")
         x_omic = batch["mol"]  # [B, G]
@@ -259,7 +245,7 @@ class UMEML_GAN(nn.Module):
 
     def head(self, h_path, h_omic, train: bool = False, T: float = 5.0,
              generator: Optional[torch.Generator] = None) -> Dict:
-        g = self._train_generator(train, generator)
+        g = train_generator(train, generator)
         b, n_tokens, _ = h_path.shape
 
         # per-prototype explainer + self-distillation (ref :554-598), first,
@@ -324,7 +310,7 @@ class UMEML_GAN(nn.Module):
                 "p_proto_before": enc["p_proto_before"],
                 "h_omic_bag_before": enc["h_omic_bag_before"],
             }
-        g = self._train_generator(train, generator)
+        g = train_generator(train, generator)
         # one generator pass serves the replacement and the missing-omics
         # generation (the reference calls it twice on the same h_path)
         h_omic_gen = self.gan_generator_p2o(h_path)

@@ -1,6 +1,6 @@
 """Attention ops — the PyTorch counterpart of ``imp_tpu/ops/attention.py``.
 
-The non-sequence-parallel subset that the UMEML_GAN eval forward runs:
+The non-sequence-parallel subset that UMEML_GAN and TransMIL run:
 
 * :class:`MultiheadAttention` — batch-first MHA returning the raw
   (pre-softmax) scores for co-attention interpretability.  The packed
@@ -10,23 +10,29 @@ The non-sequence-parallel subset that the UMEML_GAN eval forward runs:
   Moore-Penrose pseudo-inverse and the depthwise-conv value residual.
 * :class:`ExactSelfAttention` — the same parameters, exact masked attention
   through :func:`imp_torch.ops.flash_attention.flash_attention` (the Hopper
-  kernel on a CUDA tensor).
+  kernels K1 forward and K2/K3 backward on a CUDA tensor).
 * :class:`TransLayer` — ``x + Attention(LN(x))`` with the implementation
   (``"nystrom"`` or ``"flash"``) as a constructor argument, not a process
   global.
+* :class:`PreNorm`, :class:`FeedForward`, :class:`Nystromformer` — the
+  depth-stacked Nyström encoder.
 
 Masks are ``valid=True`` booleans.  Training draws dropout from an explicit
 ``torch.Generator`` passed down the forward calls (:func:`dropout`); without
-one a module runs its eval forward.  The attention output of a TransLayer
+one a module runs its eval forward.  Every module is initialised at
+construction from torch's global RNG; :func:`init_parameters_` redraws all
+of a model's parameters from a generator, from the JAX package's
+distributions.  The attention output of a TransLayer
 drops at rate 0.1, as the JAX package's ``TransLayer.dropout`` does.
 
 Numerics: everything is float32.  The Newton-Schulz pseudo-inverse needs
 true fp32 products, and the residual conv must not run in TF32; the model
-factory turns TF32 off (:func:`imp_torch.models.build_umeml_gan`).
+builders turn TF32 off (:mod:`imp_torch.models`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -54,9 +60,36 @@ def init_linear_(lin: nn.Linear, generator: torch.Generator) -> None:
         lin.bias.uniform_(-bound, bound, generator=generator)
 
 
+@torch.no_grad()
+def init_parameters_(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw every parameter of ``model`` from the JAX package's init
+    distributions with ``generator`` (the same seed gives the same weights
+    on any device; the values differ from a JAX init of the same seed)."""
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            init_linear_(m, generator)
+        elif isinstance(m, nn.LayerNorm):
+            m.reset_parameters()
+        if hasattr(m, "reset_own_parameters"):
+            m.reset_own_parameters(generator)
+
+
 # ---------------------------------------------------------------------------
 # functional pieces
 # ---------------------------------------------------------------------------
+
+
+def train_generator(
+    train: bool, generator: Optional[torch.Generator]
+) -> Optional[torch.Generator]:
+    """The generator that drives a training forward's randomness, None in
+    eval; training without one raises."""
+    if not train:
+        return None
+    if generator is None:
+        raise ValueError("train=True draws dropout from an explicit "
+                         "torch.Generator: pass generator=")
+    return generator
 
 
 def dropout(
@@ -81,7 +114,7 @@ def moore_penrose_pinv(x: torch.Tensor, iters: int = 6) -> torch.Tensor:
 
     The normaliser is the *global* max over all batch and head dims (the
     reference's ``torch.max`` with no dim), reproduced faithfully.  The
-    products need full fp32: the model factory turns TF32 off."""
+    products need full fp32: the model builders turn TF32 off."""
     in_dtype = x.dtype
     x = x.float()
     abs_x = x.abs()
@@ -95,12 +128,46 @@ def moore_penrose_pinv(x: torch.Tensor, iters: int = 6) -> torch.Tensor:
     return z.to(in_dtype)
 
 
+def _token_conv(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return F.conv2d(v, w, padding=(w.shape[2] // 2, 0), groups=w.shape[0])
+
+
+@contextlib.contextmanager
+def _onednn_off():
+    saved = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = saved
+
+
+class _CPUTokenConv(torch.autograd.Function):
+    """:func:`_token_conv` on the CPU with oneDNN off, forward and backward:
+    oneDNN's float32 weight gradient of this long (k × 1) depthwise filter
+    is off by ~6e-2 relative (measured against float64 at [3, 8, 256, 64],
+    torch 2.13 CPU), ATen's own kernels by ~5e-7."""
+
+    @staticmethod
+    def forward(ctx, v, w):
+        ctx.save_for_backward(v, w)
+        with _onednn_off():
+            return _token_conv(v, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        v, w = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad(), _onednn_off():
+            return torch.autograd.grad(_token_conv(v, w), (v, w), g)
+
+
 def residual_depthwise_conv(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Per-head depthwise conv over the token axis with SAME padding (the
     Nyström value residual, reference ``Conv2d(heads, heads, (k,1),
     groups=heads)``).  v: [B, H, N, dh]; w: [H, 1, k, 1]."""
-    h, k = w.shape[0], w.shape[2]
-    return F.conv2d(v, w, padding=(k // 2, 0), groups=h)
+    if v.device.type == "cpu":
+        return _CPUTokenConv.apply(v, w)
+    return _token_conv(v, w)
 
 
 def dense_attention(
@@ -207,9 +274,10 @@ class _QKVAttention(nn.Module):
             else None
         )
         self.to_out = nn.Linear(inner, dim)
+        self.reset_own_parameters(None)
 
     @torch.no_grad()
-    def reset_own_parameters(self, generator: torch.Generator) -> None:
+    def reset_own_parameters(self, generator: Optional[torch.Generator]) -> None:
         if self.res_conv is not None:
             bound = 1.0 / math.sqrt(self.res_conv.shape[2])  # fan_in = k
             self.res_conv.uniform_(-bound, bound, generator=generator)
@@ -304,8 +372,9 @@ class NystromAttention(_QKVAttention):
 
 class ExactSelfAttention(_QKVAttention):
     """Exact masked self-attention with the parameters of
-    :class:`NystromAttention`, computed by the flash-attention forward (the
-    Hopper kernel on a CUDA tensor, its plain version on the CPU)."""
+    :class:`NystromAttention`, computed by flash attention (the Hopper
+    kernels on a CUDA tensor, their plain versions on the CPU), forward and
+    backward."""
 
     def forward(
         self,
@@ -348,3 +417,70 @@ class TransLayer(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         return x + self.attn(self.norm(x), mask=mask, generator=generator)
+
+
+class PreNorm(nn.Module):
+    """``fn(LN(x))``."""
+
+    def __init__(self, dim: int, fn: nn.Module):
+        super().__init__()
+        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        self.fn = fn
+
+    def forward(self, x: torch.Tensor, **kwargs):
+        return self.fn(self.norm(x), **kwargs)
+
+
+class FeedForward(nn.Module):
+    """Linear(dim, mult·dim) → exact GELU → dropout → Linear(mult·dim, dim)."""
+
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
+        super().__init__()
+        self.dropout = dropout
+        self.fc1 = nn.Linear(dim, dim * mult)
+        self.fc2 = nn.Linear(dim * mult, dim)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        return self.fc2(dropout(F.gelu(self.fc1(x)), self.dropout, generator))
+
+
+class Nystromformer(nn.Module):
+    """Depth-stacked ``PreNorm(NystromAttention) + PreNorm(FeedForward)``
+    with residuals (reference ``attention.py:187-231``)."""
+
+    def __init__(
+        self,
+        dim: int,
+        depth: int,
+        dim_head: int = 64,
+        heads: int = 8,
+        num_landmarks: int = 256,
+        pinv_iterations: int = 6,
+        attn_values_residual: bool = True,
+        attn_values_residual_conv_kernel: int = 33,
+        attn_dropout: float = 0.0,
+        ff_dropout: float = 0.0,
+    ):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            nn.ModuleList([
+                PreNorm(dim, NystromAttention(
+                    dim=dim, dim_head=dim_head, heads=heads, num_landmarks=num_landmarks,
+                    pinv_iterations=pinv_iterations, residual=attn_values_residual,
+                    residual_conv_kernel=attn_values_residual_conv_kernel, dropout=attn_dropout,
+                )),
+                PreNorm(dim, FeedForward(dim, dropout=ff_dropout)),
+            ])
+            for _ in range(depth)
+        )
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        for attn, ff in self.layers:
+            x = attn(x, mask=mask, generator=generator) + x
+            x = ff(x, generator=generator) + x
+        return x

@@ -1,29 +1,41 @@
-"""Masked flash-attention forward — the PyTorch counterpart of
+"""Masked flash attention, forward and backward — the PyTorch counterpart of
 ``imp_tpu/ops/flash_attention.py``.
 
-Three functions:
-
 * :func:`flash_attention_fwd` — the wrapper of the Hopper kernel
-  ``imp_torch/csrc/flash_fwd.cu`` (it replaces the Pallas TPU kernel
+  ``imp_torch/csrc/flash_fwd.cu`` (K1; it replaces the Pallas TPU kernel
   ``imp_tpu/ops/flash_attention.py::_make_fwd_kernel``).  It takes
   pre-scaled q, k, v ``[B, H, N, d]`` and an additive key-bias row
   ``[B, Nk]`` (0 valid / -1e30 masked) and returns O and the row
-  logsumexp.  On a CUDA tensor it launches the kernel or raises; only a
-  tensor on the CPU takes the plain version.
-* :func:`flash_attention_reference` — the plain version: exact scores
-  ``q @ kᵀ + bias``, their logsumexp and ``softmax @ v``.  The CPU tests use it
-  and ``chip_smoke.py`` holds the kernel against it on the card.
+  logsumexp.
+* :func:`flash_attention_bwd` — the wrapper of the two Hopper kernels of
+  ``imp_torch/csrc/flash_bwd.cu`` (K2 for dq, then K3 for dk and dv; they
+  replace ``_make_dq_kernel`` and ``_make_dkv_kernel``).  Like the TPU's
+  ``_bwd_impl`` it takes the row logsumexp and delta = rowsum(dO ⊙ O) from
+  the caller, so a ring attention can pass statistics that are global over
+  the ring.
+* :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
+  — the plain versions (the backward also split by kernel,
+  :func:`flash_attention_bwd_dq_reference` for K2 and
+  :func:`flash_attention_bwd_dkv_reference` for K3).  The CPU tests use them
+  and ``chip_smoke.py`` holds the kernels against them on the card.
 * :func:`flash_attention` — the JAX signature ``(q, k, v, mask, scale)``:
-  it scales q before the kernel, as JAX does, and returns O.
+  it scales q before the kernels, as JAX does, and returns O through
+  :class:`FlashAttention`, a ``torch.autograd.Function`` whose forward is K1
+  (saving q, k, v, bias, O and lse) and whose backward forms delta as a
+  torch op and runs K2 and K3.  Under ``torch.no_grad()`` K1 is the only
+  launch.
 
-Forward only: the backward kernels (``_make_dq_kernel``,
-``_make_dkv_kernel``) are the ROADMAP item "training under
-``TPU.ATTENTION=flash`` (K2/K3)", so on CUDA a call that would need a
-gradient raises instead of returning a result without one.
-Unlike the TPU path, keys are not padded to a block multiple: the kernel
-masks its ragged edge itself.  A query row whose keys are all masked returns
-the mean of V over all keys and an lse near -1e30 — finite, like the TPU
-kernel, for callers to mask downstream.
+On a CUDA tensor each wrapper launches its kernels or raises; only a tensor
+on the CPU takes the plain version.  Unlike the TPU path, keys are not
+padded to a block multiple: the kernels mask their ragged edge themselves.
+
+Fully masked query rows.  A row whose keys are all masked returns, forward,
+the mean of V over all keys and an lse near -1e30: finite, like the TPU
+kernel, for callers to mask downstream.  Backward, P = exp(s - lse) is
+computed as on the TPU (not a softmax): lse = -1e30 + log(Nk) rounds to
+-1e30, so P = 1 on every key and such a row's gradients are not those of
+its forward.  No caller in the port passes such a row: TransMIL's cls key
+is always valid and UMEML_GAN passes no mask to its TransLayers.
 """
 
 from __future__ import annotations
@@ -34,19 +46,61 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30  # the additive bias of a masked key
-HEAD_DIMS = (32, 64)  # the head widths the kernel is built for
+HEAD_DIMS = (32, 64)  # the head widths the kernels are built for
 
 
 def flash_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: (O [B,H,Nq,d], lse [B,H,Nq])."""
+    """Plain PyTorch version of K1: (O [B,H,Nq,d], lse [B,H,Nq])."""
     s = q.float() @ k.float().transpose(-1, -2) + bias.float()[:, None, None, :]
     # softmax, not exp(s - lse): on a fully masked row lse = -1e30 + log(Nk)
     # rounds to -1e30, and the weights must still sum to one (the kernel's
     # acc / l), giving the mean of V
     o = torch.softmax(s, dim=-1) @ v.float()
     return o, torch.logsumexp(s, dim=-1)
+
+
+def _bwd_p_ds(q, k, v, bias, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
+    """P = exp(s - lse) and dS = P (dP - delta), the math of the off-TPU
+    branch of ``imp_tpu``'s ``flash_attention_partial_bwd``.  Not
+    differentiable: it works in place on its two [B, H, Nq, Nk] buffers."""
+    p = q.float() @ k.float().transpose(-1, -2)
+    p += bias.float()[:, None, None, :]
+    p -= lse.float()[..., None]
+    p.exp_()
+    ds = do.float() @ v.float().transpose(-1, -2)  # dP
+    ds -= delta.float()[..., None]
+    ds *= p
+    return p, ds
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2 and K3 together: (dq, dk, dv)."""
+    p, ds = _bwd_p_ds(q, k, v, bias, do, lse, delta)
+    return ds @ k.float(), ds.transpose(-1, -2) @ q.float(), p.transpose(-1, -2) @ do.float()
+
+
+def flash_attention_bwd_dq_reference(q, k, v, bias, do, lse, delta) -> torch.Tensor:
+    """Plain PyTorch version of K2 alone: dq."""
+    _, ds = _bwd_p_ds(q, k, v, bias, do, lse, delta)
+    return ds @ k.float()
+
+
+def flash_attention_bwd_dkv_reference(
+    q, k, v, bias, do, lse, delta
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3 alone: (dk, dv)."""
+    p, ds = _bwd_p_ds(q, k, v, bias, do, lse, delta)
+    return ds.transpose(-1, -2) @ q.float(), p.transpose(-1, -2) @ do.float()
 
 
 def _check(q, k, v, bias) -> None:
@@ -65,37 +119,40 @@ def _check(q, k, v, bias) -> None:
         raise ValueError(f"q, k, v, bias lie on different devices: {devices}")
 
 
-def flash_attention_fwd(
-    q: torch.Tensor,  # [B, H, Nq, d] PRE-SCALED queries
-    k: torch.Tensor,  # [B, H, Nk, d]
-    v: torch.Tensor,  # [B, H, Nk, d]
-    bias: torch.Tensor,  # [B, Nk] additive key bias, 0 valid / -1e30 masked
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(O, lse) by the Hopper kernel on CUDA, by the plain version on CPU."""
-    _check(q, k, v, bias)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, bias)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not {q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
-        raise NotImplementedError(
-            "the flash-attention backward kernels are not ported yet: ROADMAP.md "
-            "item 'training under TPU.ATTENTION=flash (K2/K3)'; call under "
-            "torch.no_grad()"
-        )
-    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
+def _check_kernel_operands(named) -> None:
+    """What the CUDA kernels take: fp32, contiguous, 16-byte aligned."""
+    for name, t in named:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
+
+
+def _check_cuda(q, k, name: str) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
+    if k.shape[2] == 0:
+        raise ValueError(f"{name} needs at least one key")
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,  # [B, H, Nq, d] PRE-SCALED queries
+    k: torch.Tensor,  # [B, H, Nk, d]
+    v: torch.Tensor,  # [B, H, Nk, d]
+    bias: torch.Tensor,  # [B, Nk] additive key bias, 0 valid / -1e30 masked
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(O, lse) by K1 on CUDA, by the plain version on CPU."""
+    _check(q, k, v, bias)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, bias)
+    _check_cuda(q, k, "flash_attention_fwd")
+    _check_kernel_operands((("q", q), ("k", k), ("v", v), ("bias", bias)))
     b, h, nq, d = q.shape
     nk = k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if nk == 0:
-        raise ValueError("flash_attention_fwd needs at least one key")
 
     from ..kernels import count_launch, load
 
@@ -114,6 +171,71 @@ def flash_attention_fwd(
     return o, lse
 
 
+def flash_attention_bwd(
+    q: torch.Tensor,  # [B, H, Nq, d] PRE-SCALED queries
+    k: torch.Tensor,  # [B, H, Nk, d]
+    v: torch.Tensor,  # [B, H, Nk, d]
+    bias: torch.Tensor,  # [B, Nk]
+    do: torch.Tensor,  # [B, H, Nq, d] output cotangent
+    lse: torch.Tensor,  # [B, H, Nq] row logsumexp
+    delta: torch.Tensor,  # [B, H, Nq] rowsum(dO ⊙ O)
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) by K2 then K3 on CUDA, by the plain version on CPU."""
+    _check(q, k, v, bias)
+    b, h, nq, d = q.shape
+    if do.shape != q.shape:
+        raise ValueError(f"do must be {tuple(q.shape)}, got {tuple(do.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, nq):
+            raise ValueError(f"{name} must be [B, H, Nq] = {(b, h, nq)}, got {tuple(t.shape)}")
+    if {do.device, lse.device, delta.device} != {q.device}:
+        raise ValueError("do, lse and delta must lie on the device of q")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, bias, do, lse, delta)
+    _check_cuda(q, k, "flash_attention_bwd")
+    _check_kernel_operands((("q", q), ("k", k), ("v", v), ("bias", bias), ("do", do),
+                            ("lse", lse), ("delta", delta)))
+    nk = k.shape[2]
+
+    from ..kernels import count_launch, load
+
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    inputs = [t.data_ptr() for t in (q, k, v, bias, do, lse, delta)]
+    if dq.numel():
+        err = load("flash_bwd_dq").imp_flash_bwd_dq_f32(
+            *inputs, dq.data_ptr(), b, h, nq, nk, d, stream)
+        if err:
+            raise RuntimeError(f"flash_bwd_dq launch failed: cudaError {err}")
+        count_launch("flash_bwd_dq")
+    if dk.numel():
+        err = load("flash_bwd_dkv").imp_flash_bwd_dkv_f32(
+            *inputs, dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, d, stream)
+        if err:
+            raise RuntimeError(f"flash_bwd_dkv launch failed: cudaError {err}")
+        count_launch("flash_bwd_dkv")
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """O = attention(q, k, v, bias) by K1; its gradient by K2 and K3.  The
+    bias row carries no gradient (the JAX package returns zeros for it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        o, lse = flash_attention_fwd(q, k, v, bias)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = (do * o).sum(dim=-1)  # as JAX forms it, outside the kernels
+        dq, dk, dv = flash_attention_bwd(q, k, v, bias, do, lse, delta.contiguous())
+        return dq, dk, dv, None
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, H, Nq, D]
     k: torch.Tensor,  # [B, H, Nk, D]
@@ -121,7 +243,8 @@ def flash_attention(
     mask: Optional[torch.Tensor] = None,  # [B, Nk] bool, True = attend
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Masked attention with the JAX signature; returns O [B, H, Nq, D]."""
+    """Masked attention with the JAX signature; returns O [B, H, Nq, D] and
+    is differentiable in q, k and v."""
     b, _, _, d = q.shape
     nk = k.shape[2]
     if scale is None:
@@ -131,5 +254,4 @@ def flash_attention(
         bias = torch.zeros((b, nk), dtype=torch.float32, device=q.device)
     else:
         bias = torch.where(mask, 0.0, NEG_INF).to(torch.float32)
-    o, _ = flash_attention_fwd(q, k.contiguous(), v.contiguous(), bias.contiguous())
-    return o
+    return FlashAttention.apply(q, k.contiguous(), v.contiguous(), bias.contiguous())

@@ -4,6 +4,8 @@
     python -m imp_torch.tools.train --root DATA --seed 1 --trainer MBTRAIN \\
         --config-file configs/Survival/UMEML_GAN.yaml \\
         --output-dir output/umeml_gan_s1 [--device cuda] [KEY VALUE ...]
+
+``--trainer`` is MBTRAIN, TransMIL or ABMIL (each with its config file).
 """
 
 from __future__ import annotations

@@ -1,0 +1,161 @@
+"""The flash-attention backward of the PyTorch port against ``imp_tpu`` on the
+CPU, where the port's K2/K3 wrapper is its plain version and the JAX
+flash attention takes its dense fallback.
+
+* the plain backward (``flash_attention_bwd_reference``) against
+  ``imp_tpu``'s ``flash_attention_partial_bwd`` with the same lse and delta
+  supplied: the same math, so 1e-5 relative to the largest entry (an entry
+  near 0 is a sum of terms of size ~1 and keeps their rounding), and so
+  are the per-kernel plain versions of K2 (dq) and K3 (dk, dv);
+* ``torch.autograd.grad`` through the port's ``flash_attention`` (the
+  ``FlashAttention`` autograd.Function) against ``jax.grad`` of ``imp_tpu``'s
+  ``flash_attention``: dq, dk, dv to rtol 2e-4 / atol 2e-5, the tolerance of
+  ``tests/test_flash_attention.py`` (exp(s - lse) against autodiff of a
+  softmax: the same gradient, other roundings);
+* the TransLayer under ``impl="flash"``: every parameter gradient and the
+  input gradient against JAX's TransLayer (dropout 0) to 1e-4.
+
+Masks keep a valid key in every row (60 and 96 of 96): a fully masked row
+follows each side's own contract (see ``imp_torch/ops/flash_attention.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax.traverse_util import flatten_dict
+
+import imp_tpu.ops.flash_attention as jflash
+from imp_tpu.ops.attention import TransLayer as JaxTransLayer
+from imp_torch import kernels
+from imp_torch.convert import _torch_key
+from imp_torch.ops.attention import TransLayer
+from imp_torch.ops.flash_attention import (
+    NEG_INF,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_dkv_reference,
+    flash_attention_bwd_dq_reference,
+    flash_attention_bwd_reference,
+    flash_attention_reference,
+)
+
+B, H, NQ, NK = 2, 4, 64, 96
+VALID = (60, 96)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file (the suite runs many workers on a
+    small host); the worker's own setting comes back after the file."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _inputs(d, seed=3):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, H, NQ, d)).astype(np.float32) * d**-0.5
+    k, v = (rng.normal(size=(B, H, NK, d)).astype(np.float32) for _ in range(2))
+    do = rng.normal(size=(B, H, NQ, d)).astype(np.float32)
+    mask = np.arange(NK)[None, :] < np.array(VALID)[:, None]
+    return q, k, v, do, mask
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_plain_backward_matches_jax_partial_bwd(d):
+    q, k, v, do, mask = _inputs(d)
+    bias = _t(np.where(mask, 0.0, NEG_INF))
+    o, lse = flash_attention_reference(_t(q), _t(k), _t(v), bias)
+    delta = (_t(do) * o).sum(-1)
+    want = jflash.flash_attention_partial_bwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), jnp.asarray(do),
+        jnp.asarray(lse.numpy()), jnp.asarray(delta.numpy()))
+    before = kernels.launches()
+    got = flash_attention_bwd(_t(q), _t(k), _t(v), bias, _t(do), lse, delta)
+    assert kernels.launches() == before  # on the CPU the wrapper is the plain version
+    ref = flash_attention_bwd_reference(_t(q), _t(k), _t(v), bias, _t(do), lse, delta)
+    for name, g, r, w in zip(("dq", "dk", "dv"), got, ref, want):
+        assert torch.equal(g, r), name
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max(), name
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_per_kernel_plain_versions_match_jax_partial_bwd(d):
+    """K2's plain version gives dq, K3's gives (dk, dv), each as the pair's."""
+    q, k, v, do, mask = _inputs(d, seed=6)
+    bias = _t(np.where(mask, 0.0, NEG_INF))
+    _, lse = flash_attention_reference(_t(q), _t(k), _t(v), bias)
+    delta = _t(np.random.default_rng(7).normal(size=(B, H, NQ)))
+    args = (_t(q), _t(k), _t(v), bias, _t(do), lse, delta)
+    want = jflash.flash_attention_partial_bwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), jnp.asarray(do),
+        jnp.asarray(lse.numpy()), jnp.asarray(delta.numpy()))
+    got = (flash_attention_bwd_dq_reference(*args), *flash_attention_bwd_dkv_reference(*args))
+    for name, g, r, w in zip(("dq", "dk", "dv"), got, flash_attention_bwd_reference(*args), want):
+        assert torch.equal(g, r), name
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max(), name
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_autograd_gradients_match_jax_grad(d):
+    q, k, v, do, mask = _inputs(d, seed=4)
+    scale = d**-0.5
+
+    def jloss(q, k, v):
+        return jnp.sum(jflash.flash_attention(q, k, v, mask=jnp.asarray(mask), scale=scale) * do)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+    out = flash_attention(tq, tk, tv, mask=torch.from_numpy(mask), scale=scale)
+    got = torch.autograd.grad((out * _t(do)).sum(), (tq, tk, tv))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-4, atol=2e-5, err_msg=name)
+    # no grad: the forward alone, the same values
+    with torch.no_grad():
+        again = flash_attention(tq, tk, tv, mask=torch.from_numpy(mask), scale=scale)
+    assert torch.equal(again, out.detach()) and not again.requires_grad
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_translayer_flash_gradients_match_jax(masked):
+    dim, n, b = 64, 21, 3
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(b, n, dim)).astype(np.float32)
+    w = rng.normal(size=(b, n, dim)).astype(np.float32)
+    mask = np.arange(n)[None, :] < np.array([n, 13, 1])[:, None] if masked else None
+    jmask = None if mask is None else jnp.asarray(mask)
+    jlayer = JaxTransLayer(dim=dim, dropout=0.0, impl="flash")
+    variables = jlayer.init(jax.random.PRNGKey(0), jnp.asarray(x), mask=jmask)
+
+    def jloss(params, x):
+        return jnp.sum(jlayer.apply(params, x, mask=jmask) * w)
+
+    want_p, want_x = jax.grad(jloss, argnums=(0, 1))(variables, jnp.asarray(x))
+
+    layer = TransLayer(dim, impl="flash", dropout=0.0)
+    sd = {}
+    for key, value in flatten_dict(variables).items():
+        tkey, transpose = _torch_key("/".join(key))
+        arr = np.asarray(value, np.float32)
+        sd[tkey] = torch.tensor(arr.T if transpose else arr)
+    layer.load_state_dict(sd, strict=True)
+    tx = _t(x).requires_grad_()
+    tmask = None if mask is None else torch.from_numpy(mask)
+    loss = (layer(tx, mask=tmask) * _t(w)).sum()
+    names, params = zip(*layer.named_parameters())
+    got = torch.autograd.grad(loss, (tx,) + params)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want_x), rtol=1e-4, atol=1e-5)
+    for key, value in flatten_dict(want_p).items():
+        tkey, transpose = _torch_key("/".join(key))
+        g = got[1 + names.index(tkey)].numpy()
+        np.testing.assert_allclose(g.T if transpose else g, np.asarray(value), rtol=1e-4,
+                                   atol=1e-5, err_msg=tkey)

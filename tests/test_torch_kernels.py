@@ -22,6 +22,9 @@ from imp_torch import kernels
 from imp_torch.ops import modularity as M
 from imp_torch.ops.flash_attention import (
     NEG_INF,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
     flash_attention_fwd,
     flash_attention_reference,
 )
@@ -101,8 +104,71 @@ def test_flash_kernel_matches_plain_on_card(d):
         flash_attention_fwd(q.double(), k.double(), v.double(), bias.double())
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, bias)
-    with pytest.raises(NotImplementedError, match="K2/K3"):
-        flash_attention_fwd(q.requires_grad_(), k, v, bias)
+
+
+
+def _bwd_inputs(b, h, n, d, lengths, device="cpu"):
+    """q, k, v, bias, dO and the row statistics of K1's forward."""
+    q, k, v = _qkv(b, h, n, n, d, seed=9, device=device)
+    valid = torch.arange(n, device=device)[None, :] < torch.tensor(lengths, device=device)[:, None]
+    bias = torch.where(valid, 0.0, NEG_INF)
+    g = torch.Generator(device=device).manual_seed(10)
+    do = torch.randn(b, h, n, d, generator=g, device=device)
+    with torch.no_grad():
+        o, lse = flash_attention_reference(q, k, v, bias)
+    return q, k, v, bias, do, lse, (do * o).sum(-1)
+
+
+def test_flash_bwd_wrapper_is_the_plain_version_on_cpu_and_rejects_bad_input():
+    args = _bwd_inputs(2, 2, 9, 32, (9, 4))
+    before = kernels.launches()
+    for a, b in zip(flash_attention_bwd(*args), flash_attention_bwd_reference(*args)):
+        assert torch.equal(a, b)
+    # the autograd Function on CPU tensors: K1's and K2/K3's plain versions
+    q, k, v = (t.clone().requires_grad_() for t in args[:3])
+    flash_attention(q, k, v, mask=args[3] == 0, scale=1.0).sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
+    assert kernels.launches() == before
+    q, k, v, bias, do, lse, delta = args
+    with pytest.raises(ValueError, match="lse must be"):
+        flash_attention_bwd(q, k, v, bias, do, lse[:, :, :3], delta)
+    with pytest.raises(ValueError, match="do must be"):
+        flash_attention_bwd(q, k, v, bias, do[:, :1], lse, delta)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,lengths", [(32, (1000, 731, 0)), (64, (1000, 731, 1))])
+def test_flash_bwd_kernels_match_plain_on_card(d, lengths):
+    """K2 and K3 against their plain version on the card (1e-4 relative,
+    fp32, other summation order), with a fully masked slide at d = 32
+    (both follow exp(s - lse): P = 1 on every key), and the autograd
+    Function launching K1 then K2 and K3 once each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
+    args = _bwd_inputs(3, 8, 1000, d, lengths, device="cuda")
+    before = kernels.launches()
+    got = flash_attention_bwd(*args)
+    ref = flash_attention_bwd_reference(*args)
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all() and _rel(a, b) < 1e-4
+    q, k, v = (t.clone().requires_grad_() for t in args[:3])
+    before = kernels.launches()
+    out = flash_attention(q, k, v, mask=args[3] == 0, scale=1.0)
+    grads = torch.autograd.grad((out * args[4]).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert all(after[n] == before[n] + 1 for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    for a, b in zip(grads, ref):
+        assert _rel(a, b) < 1e-4
+    # a CUDA tensor never falls back: what the kernels do not take raises
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention_bwd(*(t.double() for t in args))
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd(*(t[..., :16].contiguous() if t.dim() == 4 else t for t in args))
 
 
 def _bag(b, n, d, lengths, p_counts, seed=11, device="cpu"):
@@ -200,6 +266,7 @@ def test_port_imports_with_jax_blocked():
         "import imp_torch.models, imp_torch.tools.export_model, imp_torch.tools.serve\n"
         "import imp_torch.engine.mbtrain, imp_torch.tools.train, imp_torch.data\n"
         "import imp_torch.evaluation, imp_torch.native, imp_torch.ops.modularity\n"
+        "import imp_torch.engine.baselines, imp_torch.models.nets, imp_torch.ops.blocks\n"
         "from imp_torch.config import get_cfg_default\n"
         "cfg = get_cfg_default(); cfg.TPU.ATTENTION = 'flash'; cfg.freeze()\n"
         "print('ok')\n"

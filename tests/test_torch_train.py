@@ -20,7 +20,9 @@ replacement ratio is 0.
   ~4 % here) whose Adam input g + wd p is below 1e-6 on either side (and not 0
   on both), where the first step e / (|e| + eps) turns float32 noise into a
   share of the step; those are held to within one learning-rate step per
-  phase;
+  phase; the same step again under ``TPU.ATTENTION=flash`` (the port's
+  TransLayers through the flash autograd.Function, the JAX ones through
+  their dense fallback), with the same weights;
 * with dropout on, the CCA update's two-pass gradient against the direct
   gradient of the group objective under the same draws (rtol 1e-4);
 * one CCA update (two batches, ``CCA_DROPOUT False``) against the JAX
@@ -48,6 +50,7 @@ import torch
 from flax.traverse_util import flatten_dict
 
 import imp_tpu.models.layers as jlayers
+import imp_tpu.ops.attention as jattn
 import imp_tpu.models.umeml_gan as jug
 from imp_tpu.config import get_cfg_default as jax_cfg_default
 from imp_tpu.engine.mbtrain import DIS_KEYS, GEN_KEYS, _merge, _take
@@ -64,6 +67,7 @@ from imp_torch.engine import build_trainer
 from imp_torch.engine.trainer import device_batch
 from imp_torch.losses.survival import cca_loss as L_cca
 from imp_torch.ops.attention import ExactSelfAttention, NystromAttention
+from imp_torch.ops.attention import TransLayer as TorchTransLayer
 from imp_torch.ops.pairing import cosine_similarity_matrix
 from imp_torch.optim.builders import Chain, Optimizer, ScaleByAdam, ScaleByLearningRate
 
@@ -179,6 +183,17 @@ def port_trainer(tmp_path_factory, jax_side):
     trainer = build_trainer(cfg, device="cpu")
     assert [list(g) for g in trainer.model.gene_group_indexes] == GROUPS
     return trainer
+
+
+@pytest.fixture(scope="module")
+def port_flash_trainer(tmp_path_factory, port_trainer):
+    """The port's MBTRAIN of ``port_trainer``'s tree under TPU.ATTENTION=flash."""
+    cfg = port_trainer.cfg.clone()
+    cfg.defrost()
+    cfg.TPU.ATTENTION = "flash"
+    cfg.OUTPUT_DIR = str(tmp_path_factory.mktemp("out_flash"))
+    cfg.freeze()
+    return build_trainer(cfg, device="cpu")
 
 
 def _fresh(trainer, params):
@@ -347,8 +362,22 @@ def _assert_params_close(model, jax_params, what, ill_conditioned=None, max_step
 
 
 def test_one_gan_step_matches_jax(jax_side, port_trainer):
-    model, params = jax_side
-    trainer = _fresh(port_trainer, params)
+    _check_one_gan_step(*jax_side, _fresh(port_trainer, jax_side[1]))
+
+
+def test_one_gan_step_under_flash_matches_jax(jax_side, port_flash_trainer):
+    trainer = _fresh(port_flash_trainer, jax_side[1])
+    assert all(isinstance(m.attn, ExactSelfAttention) for m in trainer.model.modules()
+               if isinstance(m, TorchTransLayer))
+    mp = pytest.MonkeyPatch()  # the JAX TransLayers follow the process default
+    mp.setattr(jattn, "_DEFAULT_ATTENTION_IMPL", "flash")
+    try:
+        _check_one_gan_step(*jax_side, trainer)
+    finally:
+        mp.undo()
+
+
+def _check_one_gan_step(model, params, trainer):
     batch = _batch()
     upe = len(trainer.train_loader)
     cfg = _cfg(jax_cfg_default)
@@ -391,7 +420,7 @@ def _jax_cca_update(model, cfg, params, batches):
         b = out["h_path"].shape[0]
         return out["h_path"].reshape(b, -1), out["h_omic"].reshape(b, -1), sim_of(out)
 
-    vals = [values(params, b) for b in batches]
+    vals = [jax.jit(values)(params, b) for b in batches]
     hp_all = jnp.concatenate([v[0] for v in vals])
     ho_all = jnp.concatenate([v[1] for v in vals])
     cca_val, (g_hp, g_ho) = jax.value_and_grad(jax_cca_loss, argnums=(0, 1))(hp_all, ho_all)
@@ -404,10 +433,11 @@ def _jax_cca_update(model, cfg, params, batches):
                 + w_sim * sim_of(out))
 
     sub = _take(params, main_keys)
+    grad_fn = jax.jit(jax.grad(surrogate))
     grad_sum, offset = None, 0
     for batch, v in zip(batches, vals):
         b = v[0].shape[0]
-        gi = jax.grad(surrogate)(sub, batch, g_hp[offset:offset + b], g_ho[offset:offset + b])
+        gi = grad_fn(sub, batch, g_hp[offset:offset + b], g_ho[offset:offset + b])
         grad_sum = gi if grad_sum is None else jax.tree_util.tree_map(jnp.add, grad_sum, gi)
         offset += b
     tx = optax.adam(float(cfg.TRAIN.CURRICULUM.CCA_LR))
