@@ -14,7 +14,11 @@ Phases, each printing one JSON line (the run fails on the first error):
    K2/K3 (flash backward) at TransMIL's bag, the bag envelope with a fully
    masked slide, and UMEML_GAN's 17-token decoder; K4/K5 (modularity degree
    and combined passes) at the training batch of ``UMEML_GAN.yaml`` and at
-   a batch with a fully masked slide.
+   a batch with a fully masked slide; K6/K7 (the fused Newton-Schulz
+   pseudo-inverse, forward and backward) on softmax rows at UMEML's
+   TransLayers (batch 2: 16 matrices of 128), UMEML_GAN's at batch 8 (64 of
+   128) and TransMIL's (8 of 256), with the fused mode's gradient against
+   autograd through the chain of products, and the chain's own times.
 3. ``serve_flash`` — the serving path: UMEML_GAN at the full width of
    ``configs/Survival/UMEML_GAN.yaml`` (hidden 256, bags padded to
    10 000 x 512, 1 000 genes in 6 groups, exported batch 8) with
@@ -47,20 +51,39 @@ Phases, each printing one JSON line (the run fails on the first error):
    once per TransLayer call, K2 and K3 once per TransLayer call with grad
    (counted by a forward hook), never in eval; one step through the kernels
    against one through the plain flash attention.
+9. ``train_umeml`` / ``train_step_umeml`` — the fully-paired UMEML
+   (``configs/Survival/UMEML.yaml``: MBTRAIN's non-GAN path, batch 2) for 2
+   epochs through the CLI with every Nyström pseudo-inverse fused: K6 once
+   per TransLayer call, K7 once per call with grad and never in eval, K4/K5
+   once per step; then one step through K6/K7 against one through the
+   chain (same dropout draws), and the step time of both modes.
+10. ``train_transmil_nystrom`` / ``train_step_transmil_nystrom`` — TransMIL
+   at ``TPU.ATTENTION=auto`` (Nyström, 256 landmarks) with the fused mode
+   through the CLI: K6 and K7 twice per train step, K6 twice per eval
+   batch; one step fused against chain and the step time of both modes.
+``train_step`` (phase 6) also times UMEML_GAN's batch-8 step with the fused
+mode.  The fused mode has no cfg key (JAX's ``PINV_MODE`` is a module
+global): the runs build their models fused with :func:`pinv_mode` around
+the trainers' model builds, and run such a model through the chain under
+:func:`chain_pinv`; each A/B runs its modes in turns (chain, fused, fused,
+chain).
 
 Then a ``kernels`` line (every ported kernel with its launches on its
 main path: serving for K1, TransMIL training for K2/K3, MBTRAIN for
-K4/K5; K2 and K3 each with its own device time and plain version, no
-library call, and a ``pair`` object that times dq, dk and dv together
-through the wrapper, the plain backward and SDPA's backward), the card's
-name and power limit from ``nvidia-smi``, and last
-``{"ok": true, "device": {...}}``.  Weights are random, from a seed.
-Without a CUDA card the script exits 2 and prints no result.
+K4/K5, UMEML training for K6/K7; K2 and K3 each with its own device time
+and plain version, no library call, and a ``pair`` object that times dq,
+dk and dv together through the wrapper, the plain backward and SDPA's
+backward; K6 and K7 with a ``chain`` object, the times of the unrolled
+products they replace), the card's name and power limit from
+``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Weights are
+random, from a seed.  Without a CUDA card the script exits 2 and prints no
+result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -112,6 +135,16 @@ KERNEL_INFO = {
         "route": "cuda",
         "source": "imp_torch/csrc/modularity.cu",
         "replaces": "imp_tpu/ops/modularity.py:135",
+    },
+    "pinv_fwd": {
+        "route": "cuda",
+        "source": "imp_torch/csrc/pinv.cu",
+        "replaces": "imp_tpu/ops/pinv_kernel.py:73",
+    },
+    "pinv_bwd": {
+        "route": "cuda",
+        "source": "imp_torch/csrc/pinv.cu",
+        "replaces": "imp_tpu/ops/pinv_kernel.py:83",
     },
 }
 
@@ -191,7 +224,8 @@ def flagship_cfg(attention: str = "auto", **overrides):
 
 
 def transmil_cfg(**overrides):
-    """TransMIL.yaml under ``TPU.ATTENTION=flash`` (plus ``overrides``), frozen."""
+    """TransMIL.yaml under ``TPU.ATTENTION=flash`` (plus ``overrides``, which
+    may set another attention), frozen."""
     from imp_torch.config import get_cfg_default
 
     cfg = get_cfg_default()
@@ -613,6 +647,135 @@ def phase_modularity(card):
     return rows
 
 
+PINV_SHAPES = [
+    # name, g (= batch x 8 heads), m (landmarks = TransLayer width / 2)
+    ("umeml_b2_m128", 16, 128),  # UMEML's TransLayers at UMEML.yaml's batch 2
+    ("umeml_gan_b8_m128", 64, 128),  # (a) UMEML_GAN's encode TransLayers at batch 8
+    ("transmil_m256", 8, 256),  # (b) TransMIL's two TransLayers
+]
+PINV_MAIN_SHAPE = "umeml_b2_m128"
+PINV_ITERS = 6
+PINV_KERNEL_SYMBOL = {"pinv_fwd": "pinv_fwd_kernel", "pinv_bwd": "pinv_bwd_kernel"}
+
+
+def pinv_products(iters=PINV_ITERS) -> dict:
+    """The m x m products each function needs: K6 4 per step; K7 the
+    forward's but the last (their y, t1, t3 and mm feed the reverse sweep)
+    and 8 adjoint products per reverse step."""
+    return {"pinv_fwd": 4 * iters, "pinv_bwd": 4 * iters - 1 + 8 * iters}
+
+
+#: the products K7 does as written: 4 per replayed step but the last, and 11
+#: per reverse step (it recomputes y, t3 and mm from each stashed z_i)
+PINV_BWD_KERNEL_PRODUCTS = 4 * (PINV_ITERS - 1) + 11 * PINV_ITERS
+
+
+def pinv_bounds(g, m, iters=PINV_ITERS) -> dict:
+    """The least time for K6 and K7 on g m x m matrices: the products each
+    function needs (2 m^3 FLOPs each, :func:`pinv_products`) at the fp32
+    peak, against x (and g_out) read once and z (or dx and dcp) written
+    once."""
+    products = pinv_products(iters)
+    product = 2 * m**3 * g
+    return {
+        "pinv_fwd": bound_ms(products["pinv_fwd"] * product, 4 * (2 * g * m * m + 1)),
+        "pinv_bwd": bound_ms(products["pinv_bwd"] * product, 4 * (3 * g * m * m + g + 1)),
+    }
+
+
+def ptxas_lines(report: dict, source: str) -> list:
+    """The ``ptxas`` lines of one source's build: registers, shared memory
+    and spills per kernel."""
+    return [line.strip() for line in report[source]["ptxas"].splitlines()
+            if "registers" in line or "spill" in line or "Compiling entry" in line]
+
+
+def phase_pinv(card: str, build_report: dict):
+    """K6 and K7 against their plain versions on the card, the fused mode's
+    gradient against autograd through the chain, and the times of each:
+    the kernels' device time from the trace, the plain versions', and the
+    chain's forward and forward + backward (the path they replace)."""
+    import torch
+
+    from imp_torch import kernels
+    from imp_torch.ops import pinv as P
+    from imp_torch.ops.attention import moore_penrose_pinv
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in true fp32
+    rows = {}
+    for name, g, m in PINV_SHAPES:
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        # softmax rows of seeded scores: conditioned like a Nystrom attn2
+        x = torch.softmax(torch.randn(g, m, m, device=DEVICE, generator=gen), dim=-1)
+        g_out = torch.randn(g, m, m, device=DEVICE, generator=gen)
+
+        def grad_of(mode):
+            xg = x.detach().clone().requires_grad_()
+            with torch.enable_grad():
+                z = moore_penrose_pinv(xg, PINV_ITERS, mode)
+                return torch.autograd.grad((z * g_out).sum(), xg)[0]
+
+        with torch.no_grad():
+            c = P.norm_scalar(x)
+            z, (dx, dcp) = P.pinv_fwd(x, c), P.pinv_bwd(x, c, g_out)
+            z_ref, (dx_ref, dcp_ref) = P.pinv_fwd_reference(x, c), P.pinv_bwd_reference(x, c, g_out)
+            torch.cuda.synchronize()
+            errs = {
+                "pinv_fwd": {"z_rel": rel_err(z, z_ref),
+                             "max_abs_err": (z - z_ref).abs().max().item()},
+                "pinv_bwd": {"dx_rel": rel_err(dx, dx_ref), "dcp_rel": rel_err(dcp, dcp_ref),
+                             "dc_rel": rel_err(dcp.sum(), dcp_ref.sum()),
+                             "max_abs_err": max((dx - dx_ref).abs().max().item(),
+                                                (dcp.sum() - dcp_ref.sum()).abs().item()),
+                             "max_abs_ref": dx_ref.abs().max().item()},
+            }
+            finite = all(bool(torch.isfinite(t).all()) for t in (z, dx, dcp))
+        fused_vs_chain = rel_err(grad_of("fused"), grad_of("chain"))
+        with torch.no_grad():
+            times = {
+                "pinv_fwd": (device_ms(lambda: P.pinv_fwd(x, c), "pinv_fwd_kernel", iters=10),
+                             cuda_ms(lambda: P.pinv_fwd(x, c), 10),
+                             cuda_ms(lambda: P.pinv_fwd_reference(x, c), 10)),
+                "pinv_bwd": (device_ms(lambda: P.pinv_bwd(x, c, g_out), "pinv_bwd_kernel", iters=5),
+                             cuda_ms(lambda: P.pinv_bwd(x, c, g_out), 5),
+                             cuda_ms(lambda: P.pinv_bwd_reference(x, c, g_out), 5, warmup=1)),
+            }
+            chain = {
+                "covers": "moore_penrose_pinv: the normaliser and 6 steps of unrolled products",
+                "fwd_ms": cuda_ms(lambda: moore_penrose_pinv(x, PINV_ITERS, "chain"), 10),
+                "fused_fwd_ms": cuda_ms(lambda: moore_penrose_pinv(x, PINV_ITERS, "fused"), 10),
+            }
+        chain["fwd_bwd_ms"] = cuda_ms(lambda: grad_of("chain"), 5, warmup=1)
+        chain["fused_fwd_bwd_ms"] = cuda_ms(lambda: grad_of("fused"), 5, warmup=1)
+        bounds = pinv_bounds(g, m)
+        for kname in ("pinv_fwd", "pinv_bwd"):
+            ms, event_ms, plain_ms = times[kname]
+            require(ms is not None, f"the trace holds no device time for {kname} at {name}")
+            bound, bound_by = bounds[kname]
+            row = {
+                "phase": "kernel", "kernel": kname, "shape": name, "card": card, "g": g, "m": m,
+                "iters": PINV_ITERS, **errs[kname], "fused_vs_chain_grad_rel": fused_vs_chain,
+                "tol_rel": KERNEL_TOL, "finite": finite, "ms": ms, "event_ms": event_ms,
+                "plain_ms": plain_ms,
+                "library_ms": None,  # no one PyTorch call runs Newton-Schulz steps
+                "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / ms,
+                "bound_products": pinv_products()[kname],
+                "kernel_products": (PINV_BWD_KERNEL_PRODUCTS if kname == "pinv_bwd"
+                                    else pinv_products()[kname]),
+                "chain": chain, "ptxas": ptxas_lines(build_report, "pinv.cu"),
+            }
+            emit(row)
+            rows[(kname, name)] = row
+        rels = [v for e in errs.values() for k, v in e.items() if k.endswith("_rel")]
+        require(finite and max(rels) <= KERNEL_TOL and fused_vs_chain <= KERNEL_TOL,
+                f"K6/K7 disagree with their plain versions or the chain at {name}: {errs}, "
+                f"fused vs chain gradient {fused_vs_chain}")
+        del x, g_out, z, dx, dcp, z_ref, dx_ref, dcp_ref
+        torch.cuda.empty_cache()
+    kernels.reset_launches()  # the comparison launches do not count
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: serving
 # ---------------------------------------------------------------------------
@@ -641,6 +804,46 @@ def plain_attention():
         yield
     finally:
         fa.flash_attention_fwd, fa.flash_attention_bwd = saved
+
+
+@contextlib.contextmanager
+def pinv_mode(mode: str):
+    """Build the Nyström models with ``pinv_mode=mode`` while inside: the
+    registered builders of UMEML, UMEML_GAN and TransMIL get it bound (it
+    has no cfg key, as JAX's ``PINV_MODE`` has none)."""
+    from imp_torch.models import MODEL_REGISTRY
+
+    names = ("umeml", "umeml_gan", "transmil")
+    saved = {n: MODEL_REGISTRY.get(n) for n in names}
+    for n, builder in saved.items():
+        MODEL_REGISTRY.register_as(n, force=True)(functools.partial(builder, pinv_mode=mode))
+    try:
+        yield
+    finally:
+        for n, builder in saved.items():
+            MODEL_REGISTRY.register_as(n, force=True)(builder)
+
+
+def fused_pinvs(model) -> int:
+    """How many Nyström pseudo-inverses of ``model`` are fused."""
+    from imp_torch.ops.attention import NystromAttention
+
+    return sum(isinstance(m, NystromAttention) and m.pinv_mode == "fused" for m in model.modules())
+
+
+@contextlib.contextmanager
+def chain_pinv():
+    """Route the fused pseudo-inverse to the chain of products while inside,
+    as :func:`plain_attention` routes the flash wrappers, so a model built
+    fused runs both ways."""
+    import imp_torch.ops.attention as A
+
+    saved = A.pinv_newton_schulz
+    A.pinv_newton_schulz = lambda x, iters: A.moore_penrose_pinv(x, iters, "chain")
+    try:
+        yield
+    finally:
+        A.pinv_newton_schulz = saved
 
 
 def pairs_of(model, batch):
@@ -1119,7 +1322,7 @@ def grads_check(loss_and_grads, plain, names):
 def time_step(step, kernel_names):
     """Median and p90 host ms of ``step()`` (synchronised, after warm-up),
     the device busy ms per step, the device ms of ``kernel_names`` per
-    step, and the peak device memory."""
+    step (together and by kernel), and the peak device memory."""
     import torch
 
     for _ in range(3):
@@ -1136,13 +1339,18 @@ def time_step(step, kernel_names):
     events = profiled(step, 3)
     rows = device_rows(events)
     busy = sum(e.self_device_time_total for e in rows) / 3 / 1e3 if rows else None
-    named = (sum(e.self_device_time_total for e in rows
-                 if any(k in e.key for k in kernel_names)) / 3 / 1e3) if rows else None
+
+    def named_ms(names):
+        return (sum(e.self_device_time_total for e in rows
+                    if any(k in e.key for k in names)) / 3 / 1e3) if rows else None
+
     median = float(np.median(times)) * 1e3
     return {
         "step_ms_median": median, "step_ms_p90": float(np.percentile(times, 90)) * 1e3,
-        "timed_steps": STEP_TIMED, "kernels_device_ms_per_step": named,
-        "kernels_timed": list(kernel_names), "device_busy_ms_per_step": busy,
+        "timed_steps": STEP_TIMED, "kernels_device_ms_per_step": named_ms(kernel_names),
+        "kernels_timed": list(kernel_names),
+        "by_kernel_device_ms_per_step": {k: named_ms((k,)) for k in kernel_names},
+        "device_busy_ms_per_step": busy,
         # every row of the trace summed, for comparison: kernels counted
         # again under the CPU rows that launched them
         "all_trace_rows_ms_per_step": sum(e.self_device_time_total for e in events or ()) / 3 / 1e3,
@@ -1151,27 +1359,65 @@ def time_step(step, kernel_names):
     }
 
 
+PINV_KERNEL_NAMES = ("pinv_fwd_kernel", "pinv_bwd_kernel")
+
+
+def pinv_ab(step, kernel_names, first_chain=None):
+    """The step time of ``step()`` (on a model built fused) with its
+    pseudo-inverses as the chain (under :func:`chain_pinv`) and through
+    K6/K7, in turns: chain, fused, fused, chain (``first_chain``, a chain
+    timing already taken, stands for the first turn).  Returns per mode the
+    median of its turns, the turns, and the kernels one step launches."""
+    import torch
+
+    from imp_torch import kernels
+
+    names = tuple(kernel_names) + PINV_KERNEL_NAMES
+    turns = {"chain": [], "fused": []}
+    launched = {}
+    for i, mode in enumerate(("chain", "fused", "fused", "chain")):
+        if i == 0 and first_chain is not None:
+            turns[mode].append(first_chain)
+            continue
+        with chain_pinv() if mode == "chain" else contextlib.nullcontext():
+            if mode not in launched:
+                kernels.reset_launches()
+                step()
+                torch.cuda.synchronize()
+                launched[mode] = {k: v for k, v in kernels.launches().items() if v}
+            turns[mode].append(time_step(step, names))
+    out = {mode: {"step_ms_median": float(np.median([t["step_ms_median"] for t in ts])),
+                  "launches_per_step": launched[mode], "turns": ts}
+           for mode, ts in turns.items()}
+    out["fused_over_chain"] = out["fused"]["step_ms_median"] / out["chain"]["step_ms_median"]
+    return out
+
+
+def mbtrain_for(root: str, out: str, attention: str = "auto", **overrides):
+    """An MBTRAIN trainer on UMEML_GAN.yaml's config (plus ``overrides``)
+    over the seeded bags, its first train batch and that batch on the card."""
+    from imp_torch.engine import build_trainer
+
+    cfg = flagship_cfg(attention, **{"DATASET.ROOT": root, "OUTPUT_DIR": out,
+                                     "VERBOSE": False, "SEED": 1, "DATASET.FOLD": 1,
+                                     "TRAINER.NAME": "MBTRAIN", **overrides})
+    with seeded_bags():
+        trainer = build_trainer(cfg, device=DEVICE)
+        batch = next(iter(trainer.train_loader))
+    return trainer, batch, trainer._device_batch(batch)
+
+
 def phase_train_step(card: str, root: str, out: str, attention: str = "auto"):
     """One main step through the kernels against the plain versions (the
     modularity at ``auto``; the flash attention, forward and backward,
-    under ``flash``), then the step time at batch 8."""
+    under ``flash``), then the step time at batch 8; at ``auto`` also the
+    A/B of the Nyström pseudo-inverse, chain against K6/K7."""
     import torch
-
-    from imp_torch.engine import build_trainer
 
     flash = attention == "flash"
 
-    def trainer_for(**overrides):
-        cfg = flagship_cfg(attention, **{"DATASET.ROOT": root, "OUTPUT_DIR": out,
-                                         "VERBOSE": False, "SEED": 1, "DATASET.FOLD": 1,
-                                         "TRAINER.NAME": "MBTRAIN", **overrides})
-        with seeded_bags():
-            trainer = build_trainer(cfg, device=DEVICE)
-            batch = next(iter(trainer.train_loader))
-        return trainer, batch, trainer._device_batch(batch)
-
     # ---- one main step, kernels vs plain, same dropout draws ----------------
-    trainer, batch, db = trainer_for()
+    trainer, batch, db = mbtrain_for(root, out, attention)
     model, g = trainer.model, trainer.generator
     state = g.get_state()
     named = ([(n, p) for n, p in model.named_parameters() if not n.startswith("gan_discriminator")]
@@ -1207,9 +1453,15 @@ def phase_train_step(card: str, root: str, out: str, attention: str = "auto"):
     torch.cuda.empty_cache()
 
     # ---- the step time at batch 8 (UMEML_GAN_THROUGHPUT.yaml) ---------------
-    trainer, batch, db = trainer_for(**THROUGHPUT)
-    timing = time_step(lambda: trainer.train_step(db, train_gan=True, replace_ratio=0.25),
-                       MOD_KERNEL_NAMES + (FLASH_KERNEL_NAMES if flash else ()))
+    # at auto the model is built fused and timed first under the chain
+    with contextlib.nullcontext() if flash else pinv_mode("fused"):
+        trainer, batch, db = mbtrain_for(root, out, attention, **THROUGHPUT)
+
+    def step():
+        return trainer.train_step(db, train_gan=True, replace_ratio=0.25)
+
+    with contextlib.nullcontext() if flash else chain_pinv():
+        timing = time_step(step, MOD_KERNEL_NAMES + (FLASH_KERNEL_NAMES if flash else ()))
     b = len(batch["patient_id"])
     row = {
         "phase": "train_step_flash" if flash else "train_step", "card": card,
@@ -1219,8 +1471,14 @@ def phase_train_step(card: str, root: str, out: str, attention: str = "auto"):
         "gan": True, "replace_ratio": 0.25, **timing,
         "slides_per_s": b / (timing["step_ms_median"] / 1e3),
     }
+    if not flash:  # the pseudo-inverse A/B: the chain timed above, then K6/K7
+        row["pinv_ab"] = pinv_ab(step, MOD_KERNEL_NAMES, first_chain=timing)
     emit(row)
     require(row["loss_finite"], row)
+    if not flash:  # six TransLayers with grad per main step, each K6 then K7
+        fused = row["pinv_ab"]["fused"]["launches_per_step"]
+        require(fused.get("pinv_fwd") == fused.get("pinv_bwd") == 6
+                and "pinv_fwd" not in row["pinv_ab"]["chain"]["launches_per_step"], row["pinv_ab"])
     return row
 
 
@@ -1231,70 +1489,202 @@ def greedy_pairs(model, args):
     return greedy_topk_pairs(cosine_similarity_matrix(args[0], args[1]), model.bottleattn.topk)
 
 
-def transmil_argv(root: str, out: str) -> list:
-    return ["--root", root, "--seed", "1", "--trainer", "TransMIL", "--config-file", TRANSMIL_YAML,
-            "--output-dir", out, "--device", DEVICE, "TPU.ATTENTION", "flash",
-            "OPTIM.MAX_EPOCH", str(TRAIN_EPOCHS_FLASH)]
+#: what configs/Survival/UMEML.yaml changes in UMEML_GAN.yaml
+UMEML = {"MODEL.NAME": "umeml"}
+TRAIN_EPOCHS_UMEML = 2
 
 
-def phase_train_transmil(card: str, root: str, out: str):
-    """TransMIL under flash through the CLI at TransMIL.yaml's width: K1,
-    K2 and K3 twice per train step, K1 twice and K2/K3 never per eval
-    batch; losses finite, a C-index line, a strict reload."""
+def only_launched(d: dict) -> dict:
+    return {k: v for k, v in d.items() if v}
+
+
+def phase_train_umeml(card: str, root: str, out: str):
+    """MBTRAIN on UMEML.yaml through the CLI for 2 epochs, every Nyström
+    pseudo-inverse fused: per train step K6 once per TransLayer call, K7
+    once per call (all with grad) and K4/K5 once; per evaluation K6 once
+    per TransLayer call and nothing else; losses finite, the C-index lines,
+    a strict reload of the last checkpoint."""
     import torch
 
-    from imp_torch.engine.baselines import TransMIL
+    from imp_torch.engine.mbtrain import MBTRAIN
     from imp_torch.models import build_model, survival_num_classes
 
-    result, counts, record, seconds, log = run_trainer(
-        transmil_argv(root, out), TransMIL, ("train_step", "test", "_eval_batch"),
-        "chip_smoke_train_transmil_log.txt")
+    argv = ["--root", root, "--seed", "1", "--trainer", "MBTRAIN", "--output-dir", out,
+            "--device", DEVICE] + flagship_opts(**UMEML, **{"OPTIM.MAX_EPOCH": TRAIN_EPOCHS_UMEML})
+    with pinv_mode("fused"):
+        result, counts, record, seconds, log = run_trainer(
+            argv, MBTRAIN, ("train_step", "test"), "chip_smoke_train_umeml_log.txt")
     steps = [r for r in record if r[0] == "train_step"]
     tests = [r for r in record if r[0] == "test"]
-    eval_batches = sum(r[0] == "_eval_batch" for r in record)
-    per_step_ok = all(d["flash_fwd"] == d["flash_bwd_dq"] == d["flash_bwd_dkv"] == 2
-                      and c == {"calls": 2, "grad": 2} for _, d, c, _ in steps)
-    eval_k1 = sum(d["flash_fwd"] for _, d, _, _ in tests)
-    eval_k23 = sum(d["flash_bwd_dq"] + d["flash_bwd_dkv"] for _, d, _, _ in tests)
+    per_step_ok = all(
+        c["calls"] > 0 and c["grad"] == c["calls"]
+        and only_launched(d) == {"pinv_fwd": c["calls"], "pinv_bwd": c["calls"],
+                                 "modularity_deg": 1, "modularity_combined": 1}
+        for _, d, c, _ in steps)
+    eval_ok = all(c["calls"] > 0 and c["grad"] == 0
+                  and only_launched(d) == {"pinv_fwd": c["calls"]} for _, d, c, _ in tests)
     losses = [float(m["loss"]) for _, _, _, m in steps]
-    cindex = [line for line in log.splitlines() if line.startswith("* C-Index:")]
-    cfg = transmil_cfg()
+    cindex = [float(line.split(":")[1].strip().rstrip("%")) for line in log.splitlines()
+              if line.startswith("* cindex:")]
+    cfg = flagship_cfg(**UMEML)
     ckpt_name, ckpt_epoch = reload_last(out, build_model(
-        "transmil", cfg=cfg, num_classes=survival_num_classes(cfg.TASK.NAME, 0), device=DEVICE))
+        "umeml", cfg=cfg, num_classes=survival_num_classes(cfg.TASK.NAME, 0),
+        omic_dim=FLAGSHIP["DATASET.OMIC.DIM"], device=DEVICE))
     row = {
-        "phase": "train_transmil", "card": card, "entry": "python -m imp_torch.tools.train",
-        "argv": transmil_argv("ROOT", "OUT"), "slides": len(TRAIN_LENGTHS),
-        "bag_pad": int(cfg.DATASET.BAG_PAD), "feature": int(cfg.DATASET.PATH.DIM),
-        "batch": int(cfg.DATALOADER.TRAIN.BATCH_SIZE), "epochs": TRAIN_EPOCHS_FLASH,
-        "train_steps": len(steps), "evaluations": len(tests), "eval_batches": eval_batches,
-        "launches": counts, "K1_K2_K3_twice_per_step": per_step_ok,
-        "eval_K1": eval_k1, "eval_K2_K3": eval_k23, "losses_finite": bool(np.isfinite(losses).all()),
+        "phase": "train_umeml", "card": card, "entry": "python -m imp_torch.tools.train",
+        "config": "configs/Survival/UMEML.yaml", "pinv_mode": "fused",
+        "slides": len(TRAIN_LENGTHS), "batch": FLAGSHIP["DATALOADER.TRAIN.BATCH_SIZE"],
+        "bag_pad": FLAGSHIP["DATASET.BAG_PAD"], "hidden": FLAGSHIP["MODEL.HIDDEN_DIM"],
+        "genes": FLAGSHIP["DATASET.OMIC.DIM"], "epochs": TRAIN_EPOCHS_UMEML,
+        "train_steps": len(steps), "evaluations": len(tests), "launches": counts,
+        "translayer_calls_per_step": sorted({c["calls"] for _, _, c, _ in steps}),
+        "K6_K7_per_translayer_call_K4_K5_once_per_step": per_step_ok,
+        "eval_K6_only": eval_ok, "losses_finite": bool(np.isfinite(losses).all()),
         "last_loss": losses[-1] if losses else None, "cindex_lines": cindex,
         "result_cindex": result, "checkpoint": ckpt_name, "checkpoint_epoch": ckpt_epoch,
         "seconds": seconds, "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     emit(row)
-    require(len(steps) > 0 and per_step_ok, f"K1/K2/K3 per TransMIL train step: {row}")
-    require(eval_batches > 0 and eval_k1 == 2 * eval_batches and eval_k23 == 0,
-            f"K1/K2/K3 per TransMIL eval batch: {row}")
-    require(counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 2 * len(steps), row)
+    require(len(steps) > 0 and per_step_ok, f"K6/K7/K4/K5 per UMEML train step: {row}")
+    require(len(tests) > 0 and eval_ok, f"K6/K7 per UMEML evaluation: {row}")
+    require(counts["pinv_bwd"] == sum(c["grad"] for _, _, c, _ in steps), row)
+    require(row["losses_finite"] and result is not None and np.isfinite(result)
+            and len(cindex) >= TRAIN_EPOCHS_UMEML + 1, f"UMEML training: {row}")
+    require(ckpt_epoch == TRAIN_EPOCHS_UMEML, f"last checkpoint is epoch {ckpt_epoch}")
+    return row, counts
+
+
+def phase_train_step_umeml(card: str, root: str, out: str):
+    """One UMEML step through K6/K7 against one through the chain (loss, the
+    modular loss and every parameter gradient, same dropout draws), then the
+    step time of both modes at UMEML.yaml's batch 2."""
+    import torch
+
+    with pinv_mode("fused"):
+        trainer, batch, db = mbtrain_for(root, out, **UMEML)
+    model, g = trainer.model, trainer.generator
+    require(fused_pinvs(model) == 6, "UMEML has six Nyström TransLayers, all fused")
+    state = g.get_state()
+    names, params = zip(*model.named_parameters())
+
+    def loss_and_grads():
+        g.set_state(state)
+        out_ = model(db, train=True, generator=g)
+        loss = trainer.task_loss(out_["logits"], db) + out_["modular_loss"]
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if gr is None else gr for p, gr in zip(params, grads)]
+        return loss.detach(), {"modular_loss": out_["modular_loss"].detach()}, grads
+
+    check, counted = grads_check(loss_and_grads, chain_pinv, names)
+    require(only_launched(counted) == {"pinv_fwd": 6, "pinv_bwd": 6, "modularity_deg": 1,
+                                       "modularity_combined": 1}, counted)
+    require(check["loss_rel"] <= STEP_TOL and check["grad_rel"] <= STEP_TOL
+            and check["modular_loss_rel"] <= STEP_TOL,
+            f"UMEML step through K6/K7 vs the chain: {check}")
+    ab = pinv_ab(lambda: trainer.train_step(db), MOD_KERNEL_NAMES)
+    b = len(batch["patient_id"])
+    row = {
+        "phase": "train_step_umeml", "card": card, "check": check, "batch": b,
+        "bag_lengths": [int(x) for x in batch["img_mask"].sum(axis=1)],
+        "bag_pad": trainer.cfg.DATASET.BAG_PAD, "hidden": trainer.cfg.MODEL.HIDDEN_DIM,
+        "pinv_ab": ab, "slides_per_s": {m: b / (ab[m]["step_ms_median"] / 1e3)
+                                        for m in ("chain", "fused")},
+    }
+    emit(row)
+    require(all(t["loss_finite"] for m in ("chain", "fused") for t in ab[m]["turns"]), row)
+    require(ab["fused"]["launches_per_step"].get("pinv_fwd") == 6
+            and "pinv_fwd" not in ab["chain"]["launches_per_step"], ab)
+    return row
+
+
+#: the kernels of one TransMIL train step and of one eval batch: its two
+#: TransLayers under flash (K1, K2, K3) or Nyström with the fused mode (K6, K7)
+TRANSMIL_LAUNCHES = {
+    "flash": ({"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}, {"flash_fwd": 2}),
+    "auto": ({"pinv_fwd": 2, "pinv_bwd": 2}, {"pinv_fwd": 2}),
+}
+
+
+def transmil_argv(root: str, out: str, attention: str = "flash") -> list:
+    return ["--root", root, "--seed", "1", "--trainer", "TransMIL", "--config-file", TRANSMIL_YAML,
+            "--output-dir", out, "--device", DEVICE, "TPU.ATTENTION", attention,
+            "OPTIM.MAX_EPOCH", str(TRAIN_EPOCHS_FLASH)]
+
+
+def transmil_modes(attention: str):
+    """Under Nyström the TransMIL runs build their models fused."""
+    return contextlib.nullcontext() if attention == "flash" else pinv_mode("fused")
+
+
+def phase_train_transmil(card: str, root: str, out: str, attention: str = "flash"):
+    """TransMIL through the CLI at TransMIL.yaml's width, under flash (K1,
+    K2 and K3 twice per train step, K1 twice per eval batch) or at ``auto``
+    with the fused pseudo-inverse (K6 and K7 twice per train step, K6 twice
+    per eval batch), nothing else; losses finite, a C-index line, a strict
+    reload."""
+    import torch
+
+    from imp_torch.engine.baselines import TransMIL
+    from imp_torch.models import build_model, survival_num_classes
+
+    phase = "train_transmil" if attention == "flash" else "train_transmil_nystrom"
+    step_launches, eval_launches = TRANSMIL_LAUNCHES[attention]
+    with transmil_modes(attention):
+        result, counts, record, seconds, log = run_trainer(
+            transmil_argv(root, out, attention), TransMIL, ("train_step", "test", "_eval_batch"),
+            f"chip_smoke_{phase}_log.txt")
+    steps = [r for r in record if r[0] == "train_step"]
+    tests = [r for r in record if r[0] == "test"]
+    eval_batches = sum(r[0] == "_eval_batch" for r in record)
+    per_step_ok = all(only_launched(d) == step_launches and c == {"calls": 2, "grad": 2}
+                      for _, d, c, _ in steps)
+    eval_counts = only_launched({k: sum(d[k] for _, d, _, _ in tests) for k in counts})
+    losses = [float(m["loss"]) for _, _, _, m in steps]
+    cindex = [line for line in log.splitlines() if line.startswith("* C-Index:")]
+    cfg = transmil_cfg(**{"TPU.ATTENTION": attention})
+    ckpt_name, ckpt_epoch = reload_last(out, build_model(
+        "transmil", cfg=cfg, num_classes=survival_num_classes(cfg.TASK.NAME, 0), device=DEVICE))
+    row = {
+        "phase": phase, "card": card, "entry": "python -m imp_torch.tools.train",
+        "argv": transmil_argv("ROOT", "OUT", attention), "slides": len(TRAIN_LENGTHS),
+        "pinv_mode": None if attention == "flash" else "fused",
+        "bag_pad": int(cfg.DATASET.BAG_PAD), "feature": int(cfg.DATASET.PATH.DIM),
+        "batch": int(cfg.DATALOADER.TRAIN.BATCH_SIZE), "epochs": TRAIN_EPOCHS_FLASH,
+        "train_steps": len(steps), "evaluations": len(tests), "eval_batches": eval_batches,
+        "launches": counts, "launches_per_step": step_launches, "per_step_ok": per_step_ok,
+        "eval_launches": eval_counts, "losses_finite": bool(np.isfinite(losses).all()),
+        "last_loss": losses[-1] if losses else None, "cindex_lines": cindex,
+        "result_cindex": result, "checkpoint": ckpt_name, "checkpoint_epoch": ckpt_epoch,
+        "seconds": seconds, "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    emit(row)
+    require(len(steps) > 0 and per_step_ok, f"kernels per TransMIL train step: {row}")
+    require(eval_batches > 0
+            and eval_counts == {k: v * eval_batches for k, v in eval_launches.items()},
+            f"kernels per TransMIL eval batch: {row}")
+    require(all(counts[k] == v * len(steps) for k, v in step_launches.items()
+                if k not in eval_launches), row)
     require(row["losses_finite"] and result is not None and np.isfinite(result)
             and len(cindex) >= TRAIN_EPOCHS_FLASH + 1, f"TransMIL training: {row}")
     require(ckpt_epoch == TRAIN_EPOCHS_FLASH, f"last checkpoint is epoch {ckpt_epoch}")
     return row, counts
 
 
-def phase_train_step_transmil(card: str, root: str, out: str):
+def phase_train_step_transmil(card: str, root: str, out: str, attention: str = "flash"):
     """One TransMIL step at a full 10 000-patch slide (10 001 tokens with
-    cls) through the kernels against the plain flash attention (loss and
-    every parameter gradient, same dropout draws), then its step time."""
+    cls) through the kernels against the plain versions (loss and every
+    parameter gradient, same dropout draws): under flash against the plain
+    flash attention, then its step time; at ``auto`` K6/K7 against the
+    chain, then the step time of both modes."""
     import torch
 
     from imp_torch.engine import build_trainer
 
+    flash = attention == "flash"
     cfg = transmil_cfg(**{"DATASET.ROOT": root, "OUTPUT_DIR": out, "VERBOSE": False, "SEED": 1,
-                          "DATASET.FOLD": 1, "TRAINER.NAME": "TransMIL"})
-    with seeded_bags():
+                          "DATASET.FOLD": 1, "TRAINER.NAME": "TransMIL",
+                          "TPU.ATTENTION": attention})
+    with seeded_bags(), transmil_modes(attention):
         trainer = build_trainer(cfg, device=DEVICE)
         batch = max((b for loader in (trainer.train_loader, trainer.val_loader, trainer.test_loader)
                      if loader is not None for b in loader),
@@ -1309,19 +1699,32 @@ def phase_train_step_transmil(card: str, root: str, out: str):
         loss = trainer.task_loss(model(db, train=True, generator=g), db)
         return loss.detach(), {}, torch.autograd.grad(loss, params)
 
-    check, counted = grads_check(loss_and_grads, plain_attention, names)
-    require(counted["flash_fwd"] == counted["flash_bwd_dq"] == counted["flash_bwd_dkv"] == 2, counted)
+    check, counted = grads_check(loss_and_grads, plain_attention if flash else chain_pinv, names)
+    require(only_launched(counted) == TRANSMIL_LAUNCHES[attention][0], counted)
     require(check["loss_rel"] <= STEP_TOL and check["grad_rel"] <= STEP_TOL,
-            f"TransMIL step through the kernels vs the plain flash attention: {check}")
-    timing = time_step(lambda: trainer.train_step(db), FLASH_KERNEL_NAMES)
+            f"TransMIL step through the kernels vs the plain versions ({attention}): {check}")
+
+    def step():
+        return trainer.train_step(db)
+
+    b = len(batch["patient_id"])
     row = {
-        "phase": "train_step_transmil", "card": card, "check": check,
-        "batch": len(batch["patient_id"]), "bag_valid": int(batch["img_mask"].sum()),
-        "tokens": int(cfg.DATASET.BAG_PAD) + 1, **timing,
-        "slides_per_s": len(batch["patient_id"]) / (timing["step_ms_median"] / 1e3),
+        "phase": "train_step_transmil" if flash else "train_step_transmil_nystrom", "card": card,
+        "check": check, "batch": b, "bag_valid": int(batch["img_mask"].sum()),
+        "tokens": int(cfg.DATASET.BAG_PAD) + 1,
     }
+    if flash:
+        timing = time_step(step, FLASH_KERNEL_NAMES)
+        row.update(**timing, slides_per_s=b / (timing["step_ms_median"] / 1e3))
+        require(timing["loss_finite"], row)
+    else:
+        ab = pinv_ab(step, ())
+        row.update(pinv_ab=ab, slides_per_s={m: b / (ab[m]["step_ms_median"] / 1e3)
+                                             for m in ("chain", "fused")})
+        require(all(t["loss_finite"] for m in ("chain", "fused") for t in ab[m]["turns"]), row)
+        require(ab["fused"]["launches_per_step"] == TRANSMIL_LAUNCHES["auto"][0]
+                and ab["chain"]["launches_per_step"] == {}, ab)
     emit(row)
-    require(row["loss_finite"], row)
     return row
 
 
@@ -1340,26 +1743,28 @@ def main() -> int:
         kernels.load(name)
     emit({
         "phase": "build", "seconds": time.perf_counter() - t0,
-        "sources": {
-            src: {"seconds": r["seconds"],
-                  "ptxas": [l.strip() for l in r["ptxas"].splitlines()
-                            if "registers" in l or "spill" in l or "Compiling entry" in l]}
-            for src, r in report.items()
-        },
+        "sources": {src: {"seconds": r["seconds"], "ptxas": ptxas_lines(report, src)}
+                    for src, r in report.items()},
         "torch": torch.__version__, "cuda": torch.version.cuda,
     })
 
     krows = phase_kernel(card)
     brows = phase_flash_bwd(card)
     mrows = phase_modularity(card)
+    prows = phase_pinv(card, report)
     with tempfile.TemporaryDirectory(prefix="imp_torch_smoke_") as tmp:
         _, counts = phase_serve("flash", card, tmp)
         phase_serve("auto", card, tmp)
         root = make_train_tree(os.path.join(tmp, "tree"))
         _, train_counts = phase_train(card, root, os.path.join(tmp, "train"))
         phase_train_step(card, root, os.path.join(tmp, "train_step"))
+        _, umeml_counts = phase_train_umeml(card, root, os.path.join(tmp, "umeml"))
+        phase_train_step_umeml(card, root, os.path.join(tmp, "umeml_step"))
         _, transmil_counts = phase_train_transmil(card, root, os.path.join(tmp, "transmil"))
         phase_train_step_transmil(card, root, os.path.join(tmp, "transmil_step"))
+        phase_train_transmil(card, root, os.path.join(tmp, "transmil_nystrom"), attention="auto")
+        phase_train_step_transmil(card, root, os.path.join(tmp, "transmil_nystrom_step"),
+                                  attention="auto")
         phase_train(card, root, os.path.join(tmp, "train_flash"), attention="flash")
         phase_train_step(card, root, os.path.join(tmp, "train_step_flash"), attention="flash")
 
@@ -1384,6 +1789,15 @@ def main() -> int:
             "bound_by": main["bound_by"], "library_ms": main["library_ms"], "pair": main["pair"],
         }
 
+    def pinv_entry(name):
+        main = prows[(name, PINV_MAIN_SHAPE)]  # UMEML's TransLayers at batch 2
+        return {
+            "name": name, **KERNEL_INFO[name], "launches": umeml_counts[name],
+            "max_abs_err": max(r["max_abs_err"] for (k, _), r in prows.items() if k == name),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None, "chain": main["chain"],
+        }
+
     emit({"kernels": [
         {
             "name": "flash_fwd", **KERNEL_INFO["flash_fwd"],
@@ -1399,6 +1813,7 @@ def main() -> int:
         *(flash_bwd_entry(n) for n in ("flash_bwd_dq", "flash_bwd_dkv")),
         modularity_entry("modularity_deg"),
         modularity_entry("modularity_combined"),
+        *(pinv_entry(n) for n in ("pinv_fwd", "pinv_bwd")),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

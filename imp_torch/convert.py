@@ -1,17 +1,17 @@
 """Carry weights from the JAX package's flax trees to the port.
 
-:func:`umeml_gan_state_dict` (UMEML_GAN) and :func:`mil_state_dict`
-(``TransMIL_NET``, ``ABMIL_NET``) take a flax param tree flattened to
-``"params/path_net/kernel"``-style keys with numpy values (flatten it with
-flax on the JAX side: this package needs no flax) and return the port's
-``state_dict``:
+:func:`umeml_gan_state_dict` (UMEML_GAN), :func:`umeml_state_dict` (UMEML)
+and :func:`mil_state_dict` (``TransMIL_NET``, ``ABMIL_NET``) take a flax
+param tree flattened to ``"params/path_net/kernel"``-style keys with numpy
+values (flatten it with flax on the JAX side: this package needs no flax)
+and return the port's ``state_dict``:
 
 * every ``TorchLinear`` kernel (flax ``[in, out]``) is transposed into an
   ``nn.Linear`` weight (``[out, in]``);
 * ``LayerNorm`` ``scale`` becomes ``weight``; flax's auto-named
   ``LayerNorm_0`` inside a TransLayer is the port's ``norm``;
 * list members ``name_i`` become ``name.i`` (``nn.ModuleList``);
-* ``GroupedLinear`` (``omic_net``), the packed MHA ``in_proj_weight``
+* UMEML_GAN's ``GroupedLinear`` (``omic_net``), the packed MHA ``in_proj_weight``
   (``[e, 3e]`` in both), ``res_conv``, ``p_proto``, the encoder tokens and
   ``bottle_tokens`` carry over as they are, and so do TransMIL's
   ``cls_token``, its PPEG convs (``pos_layer/proj{,1,2}_{kernel,bias}``) and
@@ -33,8 +33,10 @@ import torch
 _LIST_MEMBER = re.compile(r"^(proto_g_blocks|omic_encoder|encoders)_(\d+)$")
 
 
-def _torch_key(flax_key: str):
-    """(torch key, transpose?) for one flattened flax key."""
+def _torch_key(flax_key: str, grouped_omic: bool = True):
+    """(torch key, transpose?) for one flattened flax key; ``grouped_omic``:
+    ``omic_net`` is UMEML_GAN's GroupedLinear, whose kernel is kept as it is
+    (UMEML's is a TorchLinear)."""
     parts = flax_key.split("/")
     if parts[0] != "params" or len(parts) < 2:
         raise KeyError(f"not a flax param key: {flax_key!r}")
@@ -50,7 +52,7 @@ def _torch_key(flax_key: str):
             out.append(p)
     leaf = parts[-1]
     transpose = False
-    if leaf == "kernel" and parts[:-1] != ["omic_net"]:
+    if leaf == "kernel" and not (grouped_omic and parts[:-1] == ["omic_net"]):
         leaf, transpose = "weight", True
     elif leaf == "scale":
         leaf = "weight"
@@ -103,19 +105,41 @@ def _mil_expected(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Size]:
     return {k: v.shape for k, v in model.state_dict().items()}
 
 
+def _umeml_expected(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Size]:
+    """Key -> shape of the port's UMEML at the widths ``flat`` implies (the
+    gene count from ``omic_net``, the rest as for UMEML_GAN)."""
+    from .models.umeml import UMEML
+
+    _, n_proto, hidden = _shape(flat, "params/p_proto")
+    with torch.device("meta"):
+        model = UMEML(
+            num_classes=_shape(flat, "params/classifier/bias")[0],
+            feat_dim=_shape(flat, "params/path_net/kernel")[0],
+            omic_dim=_shape(flat, "params/omic_net/kernel")[0],
+            hidden=hidden,
+            n_proto=n_proto,
+            n_reg=_shape(flat, "params/bottleattn/bottle_tokens")[1],
+        )
+    return {k: v.shape for k, v in model.state_dict().items()}
+
+
 def umeml_gan_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return _state_dict(flat, _expected(flat))
+
+
+def umeml_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return _state_dict(flat, _umeml_expected(flat), grouped_omic=False)
 
 
 def mil_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return _state_dict(flat, _mil_expected(flat))
 
 
-def _state_dict(flat: Dict[str, np.ndarray],
-                expected: Dict[str, torch.Size]) -> Dict[str, torch.Tensor]:
+def _state_dict(flat: Dict[str, np.ndarray], expected: Dict[str, torch.Size],
+                grouped_omic: bool = True) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for key, value in flat.items():
-        tkey, transpose = _torch_key(key)
+        tkey, transpose = _torch_key(key, grouped_omic)
         if tkey not in expected:
             raise KeyError(f"flax key {key!r} -> {tkey!r} has no counterpart in the port")
         arr = np.asarray(value, dtype=np.float32)

@@ -1,9 +1,13 @@
-"""MBTRAIN — the trainer for UMEML_GAN; the PyTorch counterpart of
+"""MBTRAIN — the trainer for UMEML and UMEML_GAN; the PyTorch counterpart of
 ``imp_tpu/engine/mbtrain.py`` (reference ``medmm/engine/mbtrain.py``, the
 curriculum of ``engine/trainer.py:280-305`` and the CCA epoch of
 ``:672-739``).
 
-One training step (:meth:`MBTRAIN.train_step`):
+UMEML (``MODEL.NAME=umeml``): one optimizer over every parameter (coupled
+L2 on all of them), and one step is one train forward, loss = task +
+modularity, one backward, one update; no curriculum, no CCA epoch.
+
+One UMEML_GAN training step (:meth:`MBTRAIN.train_step`):
 
 * ONE encode forward of the bag, with its graph kept;
 * the GAN phase on the detached ``h_path``/``h_omic``, in order: the
@@ -28,11 +32,14 @@ Under ``TPU.ATTENTION=flash`` every TransLayer call with grad runs the flash
 forward K1 and, in the backward, K2 and K3 — the CCA epoch's recompute
 pass included; evaluation and the CCA value pass run K1 only.
 
-Not ported here (ROADMAP.md §A): ``model_name="umeml"`` and
-``umeml_gan_plot``, ``DATASET.USE_BSM``, ``TRAINER.PREC`` other than fp32
-and ``MODEL.INIT_WEIGHTS`` raise; ``test_new`` (CPTAC) and the importance
-``.txt`` dumps and PNG plots are absent.  ``TPU.REMAT``/``TPU.DONATE`` need
-no counterpart.
+The models' TransLayers take ``pinv_mode`` (the Nyström pseudo-inverse as
+the chain of products or through K6/K7), which has no cfg key: the trainer
+builds them with its default, ``"chain"``, as JAX does.
+
+Not ported here (ROADMAP.md §A): ``umeml_gan_plot``, ``DATASET.USE_BSM``,
+``TRAINER.PREC`` other than fp32 and ``MODEL.INIT_WEIGHTS`` raise;
+``test_new`` (CPTAC) and the importance ``.txt`` dumps and PNG plots are
+absent.  ``TPU.REMAT``/``TPU.DONATE`` need no counterpart.
 """
 
 from __future__ import annotations
@@ -66,11 +73,11 @@ def get_omic_delete_mask(batch_size, num_features, ratio, seed=None):
 
 @TRAINER_REGISTRY.register()
 class MBTRAIN(TrainerBase):
-    """Trainer for UMEML_GAN."""
+    """Trainer for the UMEML family."""
 
     def check_cfg(self, cfg):
         assert cfg.MODEL.NAME in ("umeml", "umeml_gan", "umeml_gan_plot")
-        if cfg.MODEL.NAME != "umeml_gan":
+        if cfg.MODEL.NAME == "umeml_gan_plot":
             raise deferred(f"MODEL.NAME={cfg.MODEL.NAME!r} under MBTRAIN")
         if cfg.DATASET.USE_BSM:
             raise deferred("DATASET.USE_BSM (the chunk-averaged estimator)")
@@ -84,14 +91,22 @@ class MBTRAIN(TrainerBase):
     # ------------------------------------------------------------------ #
     def build_model(self):
         cfg = self.cfg
+        self.is_gan = cfg.MODEL.NAME == "umeml_gan"
+        genes = ({"gene_group_indexes": self.dm.gene_group_indexes or ()} if self.is_gan
+                 else {"omic_dim": self.dm.omic_dim})
         self.model = build_model(
             cfg.MODEL.NAME, cfg=cfg,
             num_classes=survival_num_classes(cfg.TASK.NAME, self.num_classes),
-            gene_group_indexes=self.dm.gene_group_indexes or (), device=self.device,
-            generator=torch.Generator().manual_seed(max(cfg.SEED, 0)),
+            device=self.device, generator=torch.Generator().manual_seed(max(cfg.SEED, 0)),
+            **genes,
         )
         self.omic_means = self.dm.compute_omic_means()
         print(f"# params: {count_num_param(self.model):,}")
+        updates_per_epoch = max(1, len(self.train_loader))
+        if not self.is_gan:
+            self.main_params = list(self.model.parameters())
+            self.main_opt = build_optimizer(cfg.OPTIM, self.main_params, updates_per_epoch)
+            return
 
         named = dict(self.model.named_parameters())
 
@@ -101,7 +116,7 @@ class MBTRAIN(TrainerBase):
         main_names = part(lambda top: top not in DIS_KEYS)
         self.main_params = [named[n] for n in main_names]
         self.main_opt = build_optimizer(
-            cfg.OPTIM, self.main_params, max(1, len(self.train_loader)),
+            cfg.OPTIM, self.main_params, updates_per_epoch,
             decay_mask=[n.split(".")[0] not in GEN_KEYS for n in main_names],
         )
         gan_lr, gan_wd = float(cfg.MODEL.UMEML.GAN_LR), float(cfg.MODEL.UMEML.GAN_WD)
@@ -113,6 +128,8 @@ class MBTRAIN(TrainerBase):
             [named[n] for n in part(lambda t: t == "gan_discriminator_o")], gan_lr, gan_wd)
 
     def _optimizers(self) -> Dict[str, Optimizer]:
+        if not self.is_gan:
+            return {"opt_state": self.main_opt}
         return {"opt_state": self.main_opt, "gen_opt": self.gen_opt,
                 "dis_p_opt": self.dis_p_opt, "dis_o_opt": self.dis_o_opt}
 
@@ -139,10 +156,15 @@ class MBTRAIN(TrainerBase):
     def _step(opt: Optimizer, loss: torch.Tensor) -> None:
         opt.step(torch.autograd.grad(loss, opt.params, allow_unused=True))
 
-    def train_step(self, db: Dict[str, torch.Tensor], train_gan: bool,
-                   replace_ratio: float) -> Dict[str, torch.Tensor]:
+    def train_step(self, db: Dict[str, torch.Tensor], train_gan: bool = False,
+                   replace_ratio: float = 0.0) -> Dict[str, torch.Tensor]:
         """One MBTRAIN step on a device batch; returns device scalars."""
         model, g = self.model, self.generator
+        if not self.is_gan:
+            out = model(db, train=True, generator=g)
+            loss = self.task_loss(out["logits"], db) + out["modular_loss"]
+            self._step(self.main_opt, loss)
+            return {"loss": loss.detach()}
         enc = model.encode(db, train=True, generator=g)
         metrics = {}
         if train_gan:
@@ -172,7 +194,7 @@ class MBTRAIN(TrainerBase):
         self.before_train()
         for self.epoch in range(self.start_epoch, self.max_epoch):
             self.before_epoch()
-            if not cur.ENABLE or self.epoch < cur.GAN_START_EPOCH:
+            if not self.is_gan or not cur.ENABLE or self.epoch < cur.GAN_START_EPOCH:
                 self.run_epoch(train_gan=False, replace_ratio=0.0)
             elif self.epoch < cur.REPLACE_START_EPOCH:
                 self.run_epoch(train_gan=True, replace_ratio=0.0)
@@ -180,7 +202,8 @@ class MBTRAIN(TrainerBase):
                 rs = cur.REPLACE_START_EPOCH
                 ratio = (self.epoch + 1 - rs) / (self.max_epoch + 1 - rs) / 2
                 self.run_epoch(train_gan=True, replace_ratio=ratio)
-            if cur.ENABLE and cur.CCA_EVERY_EPOCH and self.epoch < self.max_epoch - 1:
+            if (self.is_gan and cur.ENABLE and cur.CCA_EVERY_EPOCH
+                    and self.epoch < self.max_epoch - 1):
                 self.run_epoch_cca()
             self.after_epoch()
         return self.after_train()

@@ -6,7 +6,7 @@ seconds).  A library is built at first use, named by a hash of its source
 and flags, under ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``); a later run with the same source loads it again.  Several
 kernels may share one source and its library (K2 and K3 live in
-``flash_bwd.cu``, K4 and K5 in ``modularity.cu``).
+``flash_bwd.cu``, K4 and K5 in ``modularity.cu``, K6 and K7 in ``pinv.cu``).
 :func:`build` starts one ``nvcc`` per source, all at once.
 
 Each wrapper calls :func:`count_launch` where it launches its kernel and
@@ -58,6 +58,14 @@ KERNELS = {
     "modularity_combined": (
         "modularity.cu",
         {"imp_modularity_combined_f32": [_P] * 10 + [_I] * 6 + [_F, _P]},
+    ),
+    "pinv_fwd": (
+        "pinv.cu",
+        {"imp_pinv_fwd_f32": [_P] * 4 + [_I] * 3 + [_P]},
+    ),
+    "pinv_bwd": (
+        "pinv.cu",
+        {"imp_pinv_bwd_f32": [_P] * 7 + [_I] * 3 + [_P]},
     ),
 }
 

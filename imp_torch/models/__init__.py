@@ -1,8 +1,11 @@
 """Model registry — the PyTorch counterpart of ``imp_tpu/models/__init__.py``.
-Same config names; the port registers ``umeml_gan``, ``transmil`` and
-``abmil``.  Every builder turns TF32 off, initialises the model from a
-``torch.Generator`` (default: seed 0) without touching the caller's RNG,
-and returns it on ``device`` in eval mode."""
+Same config names; the port registers ``umeml``, ``umeml_gan``,
+``transmil`` and ``abmil``.  Every builder turns TF32 off, initialises the
+model from a ``torch.Generator`` (default: seed 0) without touching the
+caller's RNG, and returns it on ``device`` in eval mode.  The builders of
+the models with Nyström TransLayers take ``pinv_mode`` (``"chain"``, the
+default, or ``"fused"``: see :func:`imp_torch.ops.attention.moore_penrose_pinv`),
+which, like the JAX module global it replaces, has no cfg key."""
 
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from torch import nn
 from ..ops.attention import init_parameters_
 from ..utils.registry import Registry
 from .nets import ABMIL_NET, TransMIL_NET
+from .umeml import UMEML
 from .umeml_gan import UMEML_GAN
 
 MODEL_REGISTRY = Registry("MODEL")
@@ -54,6 +58,42 @@ def _build(make: Callable[[], nn.Module], device, generator: Optional[torch.Gene
     return model.to(device).eval()
 
 
+def _check_proto_init(cfg) -> None:
+    if cfg.MODEL.UMEML.PROTO_INIT != "uniform":
+        raise NotImplementedError(
+            f"MODEL.UMEML.PROTO_INIT={cfg.MODEL.UMEML.PROTO_INIT!r} needs the "
+            "PLIP text tower: not ported yet (ROADMAP.md §A, CLIP/PLIP towers)"
+        )
+
+
+@MODEL_REGISTRY.register_as("umeml")
+def build_umeml(
+    cfg,
+    num_classes: int,
+    omic_dim: int,
+    device="cuda",
+    generator: Optional[torch.Generator] = None,
+    pinv_mode: str = "chain",
+) -> UMEML:
+    """UMEML from ``cfg`` over ``omic_dim`` genes (it has no gene groups)."""
+    _check_proto_init(cfg)
+    return _build(
+        lambda: UMEML(
+            num_classes=num_classes,
+            feat_dim=cfg.DATASET.PATH.DIM,
+            omic_dim=omic_dim,
+            hidden=cfg.MODEL.HIDDEN_DIM,
+            n_proto=cfg.MODEL.UMEML.PROTOTYPES,
+            n_reg=cfg.MODEL.UMEML.REGISTERS,
+            dropout_rate=float(cfg.MODEL.DROPOUT),
+            fusion=cfg.MODEL.FUSION,
+            attention=resolve_attention(cfg.TPU.ATTENTION),
+            pinv_mode=pinv_mode,
+        ),
+        device, generator,
+    )
+
+
 @MODEL_REGISTRY.register_as("umeml_gan")
 def build_umeml_gan(
     cfg,
@@ -61,13 +101,10 @@ def build_umeml_gan(
     gene_group_indexes: Sequence[Sequence[int]],
     device="cuda",
     generator: Optional[torch.Generator] = None,
+    pinv_mode: str = "chain",
 ) -> UMEML_GAN:
     """UMEML_GAN from ``cfg`` and the gene groups."""
-    if cfg.MODEL.UMEML.PROTO_INIT != "uniform":
-        raise NotImplementedError(
-            f"MODEL.UMEML.PROTO_INIT={cfg.MODEL.UMEML.PROTO_INIT!r} needs the "
-            "PLIP text tower: not ported yet (ROADMAP.md §A, CLIP/PLIP towers)"
-        )
+    _check_proto_init(cfg)
     return _build(
         lambda: UMEML_GAN(
             num_classes=num_classes,
@@ -82,6 +119,7 @@ def build_umeml_gan(
             topk=cfg.MODEL.UMEML.TOPK,
             kd_t=float(cfg.MODEL.UMEML.KD_T),
             attention=resolve_attention(cfg.TPU.ATTENTION),
+            pinv_mode=pinv_mode,
         ),
         device, generator,
     )
@@ -89,12 +127,14 @@ def build_umeml_gan(
 
 @MODEL_REGISTRY.register_as("transmil")
 def build_transmil(cfg, num_classes: int, device="cuda",
-                   generator: Optional[torch.Generator] = None) -> TransMIL_NET:
+                   generator: Optional[torch.Generator] = None,
+                   pinv_mode: str = "chain") -> TransMIL_NET:
     """TransMIL over ``DATASET.PATH.DIM`` features, its TransLayers by
     ``TPU.ATTENTION``."""
     return _build(
         lambda: TransMIL_NET(num_classes, cfg.DATASET.PATH.DIM,
-                             attention=resolve_attention(cfg.TPU.ATTENTION)),
+                             attention=resolve_attention(cfg.TPU.ATTENTION),
+                             pinv_mode=pinv_mode),
         device, generator,
     )
 

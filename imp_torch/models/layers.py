@@ -75,9 +75,9 @@ class PathProtoGenerator(nn.Module):
 class Block(nn.Module):
     """TransLayer wrapper (reference ``umeml_gan.py:86-96``)."""
 
-    def __init__(self, dim: int, impl: str = "nystrom"):
+    def __init__(self, dim: int, impl: str = "nystrom", pinv_mode: str = "chain"):
         super().__init__()
-        self.attn = TransLayer(dim=dim, impl=impl)
+        self.attn = TransLayer(dim=dim, impl=impl, pinv_mode=pinv_mode)
 
     def forward(
         self,
@@ -105,6 +105,7 @@ class BottleneckAttentionBlock(nn.Module):
         use_pairing: bool = False,
         topk: int = 3,
         impl: str = "nystrom",
+        pinv_mode: str = "chain",
     ):
         super().__init__()
         self.n_reg, self.use_pairing, self.topk = n_reg, use_pairing, topk
@@ -112,7 +113,7 @@ class BottleneckAttentionBlock(nn.Module):
         if use_pairing:
             self.linear_p = nn.Linear(dim, dim)
             self.linear_o = nn.Linear(dim, dim)
-        self.encoders = nn.ModuleList([Block(dim, impl) for _ in range(2)])
+        self.encoders = nn.ModuleList([Block(dim, impl, pinv_mode) for _ in range(2)])
 
     @torch.no_grad()
     def reset_own_parameters(self, generator: torch.Generator) -> None:

@@ -1,8 +1,9 @@
 """MIL baselines ABMIL and TransMIL — the PyTorch counterpart of
 ``imp_tpu/models/mil.py`` (reference ``medmm/modeling/mil/``), batched over
 slides with masks.  TransMIL runs its non-sequence-parallel path; its
-TransLayer implementation (``"nystrom"`` or ``"flash"``) is a constructor
-argument."""
+TransLayer implementation (``"nystrom"`` or ``"flash"``) and the Nyström
+pseudo-inverse mode (``"chain"`` or ``"fused"``) are constructor
+arguments."""
 
 from __future__ import annotations
 
@@ -45,13 +46,14 @@ class TransMIL_MODULE(nn.Module):
 
     out_features = 512
 
-    def __init__(self, path_input_dim: int = 512, attention: str = "nystrom"):
+    def __init__(self, path_input_dim: int = 512, attention: str = "nystrom",
+                 pinv_mode: str = "chain"):
         super().__init__()
         self._fc1 = nn.Linear(path_input_dim, 512)
         self.cls_token = nn.Parameter(torch.randn(1, 1, 512))
-        self.layer1 = TransLayer(512, attention)
+        self.layer1 = TransLayer(512, attention, pinv_mode=pinv_mode)
         self.pos_layer = PPEG(512)
-        self.layer2 = TransLayer(512, attention)
+        self.layer2 = TransLayer(512, attention, pinv_mode=pinv_mode)
         self.norm = nn.LayerNorm(512, eps=1e-5)
 
     @torch.no_grad()

@@ -17,7 +17,9 @@ where they are used.  Only their defaults are ported: ``head_fused=True``
 (twin decoder modules) and ``bag_dtype=None`` (all-fp32 bag activations);
 the others, and bilinear fusion, raise ``NotImplementedError`` naming their
 ROADMAP item.  ``attention`` replaces the process-global ``TPU.ATTENTION``
-default.
+default, and ``pinv_mode`` the JAX module global ``PINV_MODE`` (``"chain"``,
+the default, or ``"fused"``: the Nyström pseudo-inverse through the kernels
+K6/K7, see :func:`imp_torch.ops.attention.moore_penrose_pinv`).
 """
 
 from __future__ import annotations
@@ -79,6 +81,7 @@ class UMEML_GAN(nn.Module):
         topk: int = 3,
         kd_t: float = 5.0,
         attention: str = "nystrom",
+        pinv_mode: str = "chain",
         head_fused: bool = True,
         stacked_pairs: bool = False,
         bag_dtype: Optional[torch.dtype] = None,
@@ -116,13 +119,14 @@ class UMEML_GAN(nn.Module):
         self.path_net = nn.Linear(feat_dim, hidden)
         self.omic_net = GroupedLinear([len(g) for g in self.gene_group_indexes], hidden)
         self.proto_g_blocks = nn.ModuleList([PathProtoGenerator(hidden) for _ in range(2)])
-        self.omic_encoder = nn.ModuleList([Block(hidden, attention) for _ in range(2)])
+        self.omic_encoder = nn.ModuleList([Block(hidden, attention, pinv_mode) for _ in range(2)])
         self.layer_norm_p = nn.LayerNorm(hidden, eps=1e-5)
         self.layer_norm_o = nn.LayerNorm(hidden, eps=1e-5)
-        self.path_decoder = TransLayer(hidden, attention)
-        self.omic_decoder = TransLayer(hidden, attention)
+        self.path_decoder = TransLayer(hidden, attention, pinv_mode=pinv_mode)
+        self.omic_decoder = TransLayer(hidden, attention, pinv_mode=pinv_mode)
         self.bottleattn = BottleneckAttentionBlock(
-            dim=hidden, n_reg=n_reg, use_pairing=True, topk=topk, impl=attention
+            dim=hidden, n_reg=n_reg, use_pairing=True, topk=topk, impl=attention,
+            pinv_mode=pinv_mode,
         )
         self.p_proto = nn.Parameter(torch.empty(1, n_proto, hidden))
         self.p_encoder_token = nn.Parameter(torch.empty(1, 1, hidden))

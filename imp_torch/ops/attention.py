@@ -7,13 +7,17 @@ The non-sequence-parallel subset that UMEML_GAN and TransMIL run:
   ``in_proj_weight`` is stored ``[e, 3e]`` and applied as ``x @ W``, as in
   the JAX package, so converted weights carry over unchanged.
 * :class:`NystromAttention` — landmark attention with the iterative
-  Moore-Penrose pseudo-inverse and the depthwise-conv value residual.
+  Moore-Penrose pseudo-inverse and the depthwise-conv value residual.  The
+  pseudo-inverse runs as the unrolled chain of products (``pinv_mode=
+  "chain"``, the default, JAX's ``PINV_MODE="xla"``) or fused
+  (``"fused"``, JAX's ``"pallas"``: the Hopper kernels K6 forward and K7
+  backward of :mod:`imp_torch.ops.pinv` on a CUDA tensor).
 * :class:`ExactSelfAttention` — the same parameters, exact masked attention
   through :func:`imp_torch.ops.flash_attention.flash_attention` (the Hopper
   kernels K1 forward and K2/K3 backward on a CUDA tensor).
 * :class:`TransLayer` — ``x + Attention(LN(x))`` with the implementation
-  (``"nystrom"`` or ``"flash"``) as a constructor argument, not a process
-  global.
+  (``"nystrom"`` or ``"flash"``) and the pseudo-inverse mode as constructor
+  arguments, not process globals.
 * :class:`PreNorm`, :class:`FeedForward`, :class:`Nystromformer` — the
   depth-stacked Nyström encoder.
 
@@ -41,8 +45,10 @@ from torch import nn
 import torch.nn.functional as F
 
 from .flash_attention import flash_attention
+from .pinv import norm_scalar, pinv_newton_schulz
 
 ATTENTION_IMPLS = ("nystrom", "flash")
+PINV_MODES = ("chain", "fused")
 
 
 # ---------------------------------------------------------------------------
@@ -109,18 +115,26 @@ def masked_fill_neg(scores: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return scores.masked_fill(~valid, -torch.finfo(scores.dtype).max)
 
 
-def moore_penrose_pinv(x: torch.Tensor, iters: int = 6) -> torch.Tensor:
+def moore_penrose_pinv(x: torch.Tensor, iters: int = 6, mode: str = "chain") -> torch.Tensor:
     """Iterative Moore-Penrose pseudo-inverse in float32.
 
     The normaliser is the *global* max over all batch and head dims (the
     reference's ``torch.max`` with no dim), reproduced faithfully.  The
-    products need full fp32: the model builders turn TF32 off."""
+    products need full fp32: the model builders turn TF32 off.
+
+    ``mode="chain"`` (JAX's ``PINV_MODE="xla"``) runs the unrolled products;
+    ``mode="fused"`` (JAX's ``"pallas"``) runs
+    :func:`imp_torch.ops.pinv.pinv_newton_schulz` — K6/K7 on a CUDA tensor,
+    their plain versions on a CPU one — where JAX takes its kernel: square,
+    m % 128 == 0, m <= 512; any other input takes the chain."""
+    if mode not in PINV_MODES:
+        raise ValueError(f"pinv mode {mode!r} not in {PINV_MODES}")
     in_dtype = x.dtype
     x = x.float()
-    abs_x = x.abs()
-    col = abs_x.sum(dim=-1)
-    row = abs_x.sum(dim=-2)
-    z = x.transpose(-1, -2) / (col.max() * row.max())
+    m = x.shape[-1]
+    if mode == "fused" and x.dim() >= 2 and x.shape[-2] == m and m % 128 == 0 and m <= 512:
+        return pinv_newton_schulz(x, iters).to(in_dtype)
+    z = x.transpose(-1, -2) / norm_scalar(x)
     eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
     for _ in range(iters):
         xz = x @ z
@@ -292,7 +306,8 @@ class NystromAttention(_QKVAttention):
     """Nyström linear attention over (optionally masked) token sequences
     (reference ``ops/attention.py:46-161``): front padding to a multiple of
     the landmark count, masked landmark means, three similarity softmaxes,
-    the 6-iteration pseudo-inverse and the depthwise-conv value residual."""
+    the 6-iteration pseudo-inverse (by ``pinv_mode``, see
+    :func:`moore_penrose_pinv`) and the depthwise-conv value residual."""
 
     def __init__(
         self,
@@ -305,11 +320,15 @@ class NystromAttention(_QKVAttention):
         residual_conv_kernel: int = 33,
         eps: float = 1e-8,
         dropout: float = 0.0,
+        pinv_mode: str = "chain",
     ):
         super().__init__(dim, dim_head, heads, residual, residual_conv_kernel, dropout)
+        if pinv_mode not in PINV_MODES:
+            raise ValueError(f"pinv_mode {pinv_mode!r} not in {PINV_MODES}")
         self.num_landmarks = num_landmarks
         self.pinv_iterations = pinv_iterations
         self.eps = eps
+        self.pinv_mode = pinv_mode
 
     def forward(
         self,
@@ -361,7 +380,7 @@ class NystromAttention(_QKVAttention):
             attn1 = torch.softmax(sim1, dim=-1)
             attn2 = torch.softmax(sim2, dim=-1)
             attn3 = torch.softmax(sim3, dim=-1)
-        attn2_inv = moore_penrose_pinv(attn2, self.pinv_iterations)
+        attn2_inv = moore_penrose_pinv(attn2, self.pinv_iterations, self.pinv_mode)
 
         out = (attn1 @ attn2_inv) @ (attn3 @ v)
         if self.res_conv is not None:
@@ -394,9 +413,11 @@ class ExactSelfAttention(_QKVAttention):
 class TransLayer(nn.Module):
     """``x + Attention(LN(x))`` with heads=8, dim_head=dim/8 (reference
     ``ops/blocks.py:252-268``).  ``impl="nystrom"`` uses landmarks = dim/2
-    (reference parity); ``impl="flash"`` the exact kernel."""
+    (reference parity) and its pseudo-inverse by ``pinv_mode``;
+    ``impl="flash"`` the exact kernel, which has no pseudo-inverse."""
 
-    def __init__(self, dim: int = 512, impl: str = "nystrom", dropout: float = 0.1):
+    def __init__(self, dim: int = 512, impl: str = "nystrom", dropout: float = 0.1,
+                 pinv_mode: str = "chain"):
         super().__init__()
         if impl not in ATTENTION_IMPLS:
             raise ValueError(f"TransLayer impl {impl!r} not in {ATTENTION_IMPLS}")
@@ -407,7 +428,7 @@ class TransLayer(nn.Module):
         else:
             self.attn = NystromAttention(
                 dim=dim, dim_head=dim // 8, heads=8, num_landmarks=dim // 2,
-                pinv_iterations=6, dropout=dropout,
+                pinv_iterations=6, dropout=dropout, pinv_mode=pinv_mode,
             )
 
     def forward(
@@ -460,6 +481,7 @@ class Nystromformer(nn.Module):
         attn_values_residual_conv_kernel: int = 33,
         attn_dropout: float = 0.0,
         ff_dropout: float = 0.0,
+        pinv_mode: str = "chain",
     ):
         super().__init__()
         self.layers = nn.ModuleList(
@@ -468,6 +490,7 @@ class Nystromformer(nn.Module):
                     dim=dim, dim_head=dim_head, heads=heads, num_landmarks=num_landmarks,
                     pinv_iterations=pinv_iterations, residual=attn_values_residual,
                     residual_conv_kernel=attn_values_residual_conv_kernel, dropout=attn_dropout,
+                    pinv_mode=pinv_mode,
                 )),
                 PreNorm(dim, FeedForward(dim, dropout=ff_dropout)),
             ])

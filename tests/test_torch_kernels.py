@@ -20,6 +20,8 @@ import torch
 
 from imp_torch import kernels
 from imp_torch.ops import modularity as M
+from imp_torch.ops import pinv
+from imp_torch.ops.attention import moore_penrose_pinv
 from imp_torch.ops.flash_attention import (
     NEG_INF,
     flash_attention,
@@ -230,6 +232,91 @@ def test_modularity_wrappers_are_the_plain_versions_on_cpu():
     assert kernels.launches() == before  # the plain versions launch nothing
 
 
+def _attn_like(g, m, seed=13, device="cpu"):
+    """Softmax rows of seeded scores: conditioned like a Nyström attn2."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.softmax(torch.randn(g, m, m, generator=gen, device=device), dim=-1)
+
+
+def _chain_grad(x, g_out):
+    xg = x.clone().requires_grad_()
+    return torch.autograd.grad((moore_penrose_pinv(xg, 6, mode="chain") * g_out).sum(), xg)[0]
+
+
+def test_pinv_wrappers_are_the_plain_versions_on_cpu_and_reject_bad_input():
+    x = _attn_like(2, 128)
+    c = pinv.norm_scalar(x)
+    g_out = torch.randn(2, 128, 128, generator=torch.Generator().manual_seed(3))
+    before = kernels.launches()
+    assert torch.equal(pinv.pinv_fwd(x, c), pinv.pinv_fwd_reference(x, c))
+    for a, b in zip(pinv.pinv_bwd(x, c, g_out), pinv.pinv_bwd_reference(x, c, g_out)):
+        assert torch.equal(a, b)
+    assert kernels.launches() == before  # the plain versions launch nothing
+    with pytest.raises(ValueError, match=r"\[g, m, m\]"):
+        pinv.pinv_fwd(x[:, :64], c)
+    with pytest.raises(ValueError, match="one value"):
+        pinv.pinv_fwd(x, torch.ones(2))
+    with pytest.raises(ValueError, match="g_out"):
+        pinv.pinv_bwd(x, c, g_out[:1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,m", [(64, 128), (8, 256), (3, 384), (2, 512)])
+def test_pinv_kernels_match_plain_on_card(g, m):
+    """K6 and K7 against their plain versions on the card (1e-4 relative to
+    the largest reference value: fp32, other summation order; the backward
+    reaches ~1e3), and the autograd Function, through ``moore_penrose_pinv``
+    in the fused mode, against autograd through the chain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in true fp32
+    x = _attn_like(g, m, device="cuda")
+    c = pinv.norm_scalar(x)
+    g_out = torch.randn(g, m, m, generator=torch.Generator(device="cuda").manual_seed(3),
+                        device="cuda")
+    before = kernels.launches()
+    z = pinv.pinv_fwd(x, c)
+    dx, dcp = pinv.pinv_bwd(x, c, g_out)
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert after["pinv_fwd"] == before["pinv_fwd"] + 1
+    assert after["pinv_bwd"] == before["pinv_bwd"] + 1
+    dx_ref, dcp_ref = pinv.pinv_bwd_reference(x, c, g_out)
+    for got, want in ((z, pinv.pinv_fwd_reference(x, c)), (dx, dx_ref), (dcp, dcp_ref)):
+        assert torch.isfinite(got).all() and _rel(got, want) < 1e-4
+    xg = x.clone().requires_grad_()
+    before = kernels.launches()
+    grad = torch.autograd.grad((moore_penrose_pinv(xg, 6, mode="fused") * g_out).sum(), xg)[0]
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert after["pinv_fwd"] == before["pinv_fwd"] + 1
+    assert after["pinv_bwd"] == before["pinv_bwd"] + 1
+    assert _rel(grad, _chain_grad(x, g_out)) < 1e-4
+    # a CUDA tensor never falls back: what the kernels do not take raises
+    with pytest.raises(TypeError, match="float32"):
+        pinv.pinv_fwd(x.double(), c.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        pinv.pinv_fwd(x.transpose(1, 2), c)
+
+
+@pytest.mark.gpu
+def test_pinv_gate_runs_the_chain_on_card():
+    """The fused mode takes the kernels only where JAX takes its kernel
+    (square, m % 128 == 0, m <= 512); elsewhere it is the chain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
+    before = kernels.launches()
+    for x in (_attn_like(4, 64, device="cuda"), _attn_like(2, 640, device="cuda")):
+        got = moore_penrose_pinv(x, 6, mode="fused")
+        assert torch.equal(got, moore_penrose_pinv(x, 6, mode="chain"))
+    # a non-square input goes to the chain, which (as in JAX) has no such case
+    with pytest.raises(RuntimeError):
+        moore_penrose_pinv(_attn_like(2, 128, device="cuda")[:, :, :96], 6, mode="fused")
+    assert kernels.launches() == before
+    with pytest.raises(ValueError, match="m = 64"):
+        pinv.pinv_fwd(_attn_like(2, 64, device="cuda"), torch.ones((), device="cuda"))
+
+
 # ---------------------------------------------------------------------------
 # package rules: no JAX anywhere in the port or its smoke script
 # ---------------------------------------------------------------------------
@@ -267,6 +354,7 @@ def test_port_imports_with_jax_blocked():
         "import imp_torch.engine.mbtrain, imp_torch.tools.train, imp_torch.data\n"
         "import imp_torch.evaluation, imp_torch.native, imp_torch.ops.modularity\n"
         "import imp_torch.engine.baselines, imp_torch.models.nets, imp_torch.ops.blocks\n"
+        "import imp_torch.ops.pinv, imp_torch.models.umeml\n"
         "from imp_torch.config import get_cfg_default\n"
         "cfg = get_cfg_default(); cfg.TPU.ATTENTION = 'flash'; cfg.freeze()\n"
         "print('ok')\n"
