@@ -12,7 +12,10 @@ Phases, each printing one JSON line (the run fails on the first error):
    (``library_ms``, a yardstick only): K1 (flash forward) at the serving
    shapes, the 10 000-patch bag envelope and TransMIL's 10 001-token bag;
    K2/K3 (flash backward) at TransMIL's bag, the bag envelope with a fully
-   masked slide, and UMEML_GAN's 17-token decoder; K4/K5 (modularity degree
+   masked slide, UMEML_GAN's 17-token decoder, and a 4 096-token batch whose
+   mask is no prefix (key tiles alternately valid and masked, one valid key
+   alone in a masked tile, and a ragged slide), with ``ptxas``'s registers
+   and spills and each CTA's dynamic shared memory; K4/K5 (modularity degree
    and combined passes) at the training batch of ``UMEML_GAN.yaml`` and at
    a batch with a fully masked slide; K6/K7 (the fused Newton-Schulz
    pseudo-inverse, forward and backward) on softmax rows at UMEML's
@@ -73,7 +76,7 @@ main path: serving for K1, TransMIL training for K2/K3, MBTRAIN for
 K4/K5, UMEML training for K6/K7; K2 and K3 each with its own device time
 and plain version, no library call, and a ``pair`` object that times dq,
 dk and dv together through the wrapper, the plain backward and SDPA's
-backward; K6 and K7 with a ``chain`` object, the times of the unrolled
+backward, with the name of SDPA's backward kernel from the trace; K6 and K7 with a ``chain`` object, the times of the unrolled
 products they replace), the card's name and power limit from
 ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Weights are
 random, from a seed.  Without a CUDA card the script exits 2 and prints no
@@ -101,6 +104,15 @@ SERVE_BATCH = 8  # the exported batch: configs/Survival/UMEML_GAN_THROUGHPUT.yam
 SEED = 0
 # the card's published peaks (H100 SXM data sheet, dense, 700 W)
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
+#: fp32-accurate products on the tensor cores: 3xTF32 (big.big + big.small +
+#: small.big) takes three TF32 products for one
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
+#: exps on the special-function units: 16 a clock per SM (CUDA C++
+#: Programming Guide, arithmetic instruction throughput, compute capability
+#: 9.0) x 132 SMs x 1.98 GHz, the boost clock behind ``PEAK_FP32_FLOPS``
+#: (16 896 cores x 2 x 1.98 GHz)
+PEAK_SFU_OPS = 16 * 132 * 1.98e9
 PEAK_BYTES = 3.35e12
 # kernel vs plain on one card, fp32, different summation order
 KERNEL_TOL = 1e-4
@@ -406,32 +418,60 @@ def phase_kernel(card: str):
 
 
 BWD_SHAPES = [
-    # name, B, H, N, d, valid key counts (None = no mask)
+    # name, B, H, N, d, valid keys per slide (None = no mask; see key_valid)
     ("transmil_n10001_d64", 1, 8, 10001, 64, (7314,)),  # (a) TransMIL's bag
     ("bag_n10000_d32", 3, 8, 10000, 32, (10000, 7313, 0)),  # (b) one slide fully masked
     ("umeml_b8_n17_d32", 8, 8, 17, 32, None),  # (c) UMEML_GAN's decoder at batch 8
+    ("tiles_n4096_d64", 2, 8, 4096, 64, ("tiles", 4001)),  # (d) a mask that is no prefix
 ]
 BWD_MAIN_SHAPE = "transmil_n10001_d64"
 
 
+def key_valid(n: int, spec, device, tile=None):
+    """The valid keys of one slide: a prefix of ``spec`` keys, or, for
+    ``"tiles"``, key tiles of ``tile`` (K2/K3's, ``flash_bwd_layout``)
+    alternately valid and masked, with one valid key alone inside a masked
+    tile (K2 skips a tile by a vote over its biases, K3 zero-fills it, never
+    from a length)."""
+    import torch
+
+    keys = torch.arange(n, device=device)
+    if spec != "tiles":
+        return keys < spec
+    valid = (keys // tile) % 2 == 0
+    valid[3 * tile + 17] = True
+    return valid
+
+
 def flash_bwd_bounds(b, h, n, d, valid) -> dict:
-    """The least time for K2 and K3 on this call's work: per (query, key)
-    pair one exp and, per dim, 3 products (K2: 6 FLOPs) or 4 (K3: 8), over
-    the keys the data needs — a slide's valid keys, or all of them where
-    none is valid (P = 1 on every key there) — against q, k, v, dO, bias,
-    lse and delta read once and the gradients written once."""
+    """The least time for K2 and K3 on this call's work, the largest of
+    three terms: the products, fp32-accurate on the tensor cores (3xTF32),
+    per (query, key) pair and dim 3 (K2: 6 FLOPs) or 4 (K3: 8); one exp per
+    pair on the special-function units; q, k, v, dO, bias, lse and delta
+    read once and the gradients written once. Pairs count the keys the data
+    needs: a slide's valid keys (``valid``: counts per slide), or all of
+    them where none is valid (P = 1 on every key there)."""
     keys = b * n if valid is None else sum(v if v else n for v in valid)
     pairs = h * n * keys
     inputs = 4 * (4 * b * h * n * d + b * n + 2 * b * h * n)
+
+    def bound(products, nbytes):
+        terms = {"operations": max(products / PEAK_3XTF32_FLOPS, pairs / PEAK_SFU_OPS),
+                 "bytes": nbytes / PEAK_BYTES}
+        by = max(terms, key=terms.get)
+        return terms[by] * 1e3, by
+
     return {
-        "flash_bwd_dq": bound_ms(6 * pairs * d + pairs, inputs + 4 * b * h * n * d),
-        "flash_bwd_dkv": bound_ms(8 * pairs * d + pairs, inputs + 8 * b * h * n * d),
+        "flash_bwd_dq": bound(6 * pairs * d, inputs + 4 * b * h * n * d),
+        "flash_bwd_dkv": bound(8 * pairs * d, inputs + 8 * b * h * n * d),
     }
 
 
 def sdpa_bwd_ms(q, k, v, bias, do, iters: int):
     """The backward of ``scaled_dot_product_attention`` on the same fp32
-    inputs and mask: fwd + bwd minus fwd (a yardstick only)."""
+    inputs and mask: fwd + bwd minus fwd (a yardstick only), and the name of
+    the device kernel that takes the most of the backward's time in the
+    trace (it says which backend ran), None where the trace has none."""
     import torch
     import torch.nn.functional as F
 
@@ -445,40 +485,49 @@ def sdpa_bwd_ms(q, k, v, bias, do, iters: int):
         torch.autograd.grad(fwd(), (qg, kg, vg), do)
 
     with torch.enable_grad():
-        return cuda_ms(fwd_bwd, iters, warmup=1) - cuda_ms(fwd, iters, warmup=1)
+        ms = cuda_ms(fwd_bwd, iters, warmup=1) - cuda_ms(fwd, iters, warmup=1)
+        fwd_names = {e.key for e in device_rows(profiled(fwd, 1))}
+        bwd_rows = [e for e in device_rows(profiled(fwd_bwd, 1)) if e.key not in fwd_names]
+    top = max(bwd_rows, key=lambda e: e.self_device_time_total, default=None)
+    return ms, None if top is None else top.key
 
 
 #: the CUDA kernel that each backward kernel's trace rows are named after
 BWD_KERNEL_SYMBOL = {"flash_bwd_dq": "dq_kernel", "flash_bwd_dkv": "dkv_kernel"}
 
 
-def phase_flash_bwd(card: str):
+def phase_flash_bwd(card: str, build_report: dict):
     """K2 and K3 against their plain versions on the card, and timed.  Both
     run in one ``flash_attention_bwd`` call, so the events time the pair
     (``pair``: dq, dk and dv, with the plain and SDPA backwards that compute
     the same three) and each kernel's own ``ms`` is its device time in the
-    trace of that call."""
+    trace of that call.  Where a slide has a valid key, its masked keys must
+    get dk = dv = 0 exactly (P = 0; K3 zero-fills a fully masked tile)."""
     import torch
 
     from imp_torch import kernels
     from imp_torch.ops.flash_attention import (
         NEG_INF, flash_attention_bwd, flash_attention_bwd_dkv_reference,
         flash_attention_bwd_dq_reference, flash_attention_bwd_reference, flash_attention_reference,
+        flash_bwd_layout,
     )
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' products in fp32
     plain = {"flash_bwd_dq": flash_attention_bwd_dq_reference,
              "flash_bwd_dkv": flash_attention_bwd_dkv_reference}
 
     rows = {}
-    for name, b, h, n, d, valid in BWD_SHAPES:
+    for name, b, h, n, d, specs in BWD_SHAPES:
         g = torch.Generator(device=DEVICE).manual_seed(SEED)
         q, k, v, do = (torch.randn(b, h, n, d, device=DEVICE, generator=g) for _ in range(4))
         q = q * d**-0.5
-        if valid is None:
-            bias = torch.zeros(b, n, device=DEVICE)
+        layout = flash_bwd_layout(d)  # the tile and shared memory the kernels launch with
+        if specs is None:
+            bias, valid = torch.zeros(b, n, device=DEVICE), None
         else:
-            lens = torch.tensor(valid, device=DEVICE)
-            bias = torch.where(torch.arange(n, device=DEVICE)[None, :] < lens[:, None], 0.0, NEG_INF)
+            keep = torch.stack([key_valid(n, spec, DEVICE, layout["tile"]) for spec in specs])
+            bias = torch.where(keep, 0.0, NEG_INF)
+            valid = [int(c) for c in keep.sum(dim=1).tolist()]
         with torch.no_grad():
             o, lse = flash_attention_reference(q, k, v, bias)
             delta = (do * o).sum(-1)
@@ -491,6 +540,8 @@ def phase_flash_bwd(card: str):
             abs_err = {"flash_bwd_dq": (got[0] - ref[0]).abs().max().item(),
                        "flash_bwd_dkv": max((a - r).abs().max().item() for a, r in zip(got[1:], ref[1:]))}
             finite = all(bool(torch.isfinite(t).all()) for t in got)
+            masked = (bias < 0) & (bias == 0).any(dim=1, keepdim=True)
+            masked_zero = all(bool((t.transpose(1, 2)[masked] == 0).all()) for t in got[1:])
             del got, ref
             torch.cuda.empty_cache()
             iters = 100 if n < 100 else 5
@@ -507,24 +558,28 @@ def phase_flash_bwd(card: str):
             times = {kn: (device_ms(wrapper, sym, iters=min(iters, 20)),
                           cuda_ms(lambda: plain[kn](*args), min(iters, 3), warmup=1))
                      for kn, sym in BWD_KERNEL_SYMBOL.items()}
-        pair["library_ms"] = sdpa_bwd_ms(q, k, v, bias, do, min(iters, 3))
+        pair["library_ms"], pair["library_kernel"] = sdpa_bwd_ms(q, k, v, bias, do, min(iters, 3))
         bounds = flash_bwd_bounds(b, h, n, d, valid)
         for kname, (ms, plain_ms) in times.items():
             require(ms is not None, f"the trace holds no device time for {kname} at {name}")
             bound, bound_by = bounds[kname]
             row = {
                 "phase": "kernel", "kernel": kname, "shape": name, "card": card,
-                "B": b, "H": h, "N": n, "d": d, "valid": valid, **errs,
+                "B": b, "H": h, "N": n, "d": d, "valid": valid, "mask": specs, **errs,
                 "max_abs_err": abs_err[kname], "tol_rel": KERNEL_TOL, "finite": finite,
-                "ms": ms, "plain_ms": plain_ms,
+                "masked_keys_zero": masked_zero, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": None,  # no one PyTorch call computes dq alone, or dk and dv alone
                 "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / ms,
-                "pair": pair,
+                "pair": pair, "dynamic_smem_bytes": layout[kname],
+                "ptxas": ptxas_lines(build_report, "flash_bwd.cu"),
             }
             emit(row)
             rows[(kname, name)] = row
-        require(finite and max(errs.values()) <= KERNEL_TOL,
-                f"flash backward disagrees with its plain version at {name}: {errs}")
+            require(row["share_of_bound"] <= 1.0,
+                    f"{kname} beats its bound at {name}: the bound is wrong: {row}")
+        require(finite and masked_zero and max(errs.values()) <= KERNEL_TOL,
+                f"flash backward disagrees with its plain version at {name}: {errs}, "
+                f"masked keys zero: {masked_zero}")
         del q, k, v, do, bias, lse, delta, args
         torch.cuda.empty_cache()
     kernels.reset_launches()  # the comparison launches do not count
@@ -1749,7 +1804,7 @@ def main() -> int:
     })
 
     krows = phase_kernel(card)
-    brows = phase_flash_bwd(card)
+    brows = phase_flash_bwd(card, report)
     mrows = phase_modularity(card)
     prows = phase_pinv(card, report)
     with tempfile.TemporaryDirectory(prefix="imp_torch_smoke_") as tmp:
@@ -1787,6 +1842,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for (k, _), r in brows.items() if k == name),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"], "pair": main["pair"],
+            "share_of_bound": main["share_of_bound"],
+            "dynamic_smem_bytes": main["dynamic_smem_bytes"], "ptxas": main["ptxas"],
         }
 
     def pinv_entry(name):

@@ -1,8 +1,8 @@
 // Masked flash-attention backward for Hopper (sm_90a), fp32 in and out:
 // two kernels, launched one after the other by the same wrapper.
 //
-//  * dq_kernel replaces imp_tpu/ops/flash_attention.py::_make_dq_kernel (K2)
-//  * dkv_kernel replaces imp_tpu/ops/flash_attention.py::_make_dkv_kernel (K3)
+//  * dq_kernel replaces imp_tpu/ops/flash_attention.py:104 _make_dq_kernel (K2)
+//  * dkv_kernel replaces imp_tpu/ops/flash_attention.py:144 _make_dkv_kernel (K3)
 //
 // Contract (the TPU kernels' and the plain version's): for pre-scaled q, an
 // additive key-bias row (0 valid / -1e30 masked), the output cotangent dO,
@@ -15,297 +15,614 @@
 // key, as on the TPU. Keys and queries past Nk / Nq (the ragged edge of the
 // last tile) are excluded here, so the caller pads nothing.
 //
-// What bounds it on the H100: K2 does 3 products (6*B*H*Nq*Nk*d FLOPs) plus
-// B*H*Nq*Nk exps, K3 4 products (8*B*H*Nq*Nk*d FLOPs) plus the same exps,
-// against q, k, v, dO, lse, delta read once and the gradients written once.
-// The fp32 contract rules out the tensor cores (TF32 keeps ~3 decimal
-// digits), so the ceiling is the 67 TFLOP/s of the fp32 CUDA cores; at the
-// TransMIL bag (N = 10 001, d = 64, 8 heads) that is ~4.6 ms (K2) and
-// ~6.1 ms (K3) against ~20 us of memory traffic: compute-bound.
+// What bounds it on the H100. K2 does 3 products (6*B*H*Nq*Nk*d FLOPs) and
+// K3 4 (8*B*H*Nq*Nk*d), each plus B*H*Nq*Nk exps, against q, k, v, dO, lse,
+// delta read once and the gradients written once: compute-bound. The TPU
+// kernel feeds fp32 operands to its matrix unit; here every tile product
+// runs on the tensor cores in 3xTF32 (mma.sync m16n8k8 TF32, fp32
+// accumulate): each operand x is split into big = x rounded to TF32 and
+// small = x - big, and a.b = big.big + big.small + small.big, which
+// keeps fp32 accuracy (one TF32 pass keeps ~3 decimal digits and fails the
+// 1e-4 gate). The ceiling is then a third of the 494.7 TFLOP/s TF32 peak,
+// ~165 TFLOP/s: at TransMIL's bag (N = 10 001, 7 314 valid keys, d = 64, 8
+// heads) ~1.36 ms (K2) and ~1.82 ms (K3), where the 67 TFLOP/s fp32 CUDA
+// cores would need 3.4 and 4.5 ms.
 //
-// Design (simple first; wgmma/TMA/pipelining are later work):
-//  * The TPU grids walk the reduction axis in order and carry the sums in
-//    VMEM scratch. Here each block owns a tile of the OUTPUT rows and loops
-//    over the whole reduction axis itself, so every sum is made in one
-//    thread's registers in a fixed order: deterministic, no atomics.
-//    K2: a block owns a query tile and loops over every key tile, recomputing
-//    S and P. K3: a block owns a key tile and loops over every query tile,
-//    staging that tile's q, dO, lse and delta in shared memory.
-//  * A row of d = 64 per thread would hold q, dO and dq (192 floats, K2) or
-//    k, v, dk and dv (256 floats, K3): past the 255-register limit. So a row
-//    is split over TPR = d / 32 threads, each holding 32 of its dims; the
-//    two halves' dot products meet in one __shfl_xor_sync. The halves sit
-//    16 lanes apart, so each quarter-warp reads ONE shared address of the
-//    staged tile (a broadcast, no bank conflict).
-//  * The staged tile is consumed in chunks of kChunk rows: first their dot
-//    products (and the shuffles, which then overlap), then their rank-one
-//    updates, so only 2*kChunk scalars are live beside the row state.
+// Design:
+//  * A CTA of 4 warps owns 64 output rows and sweeps the reduction axis in
+//    tiles of 64, so every sum is made in one thread's registers in a fixed
+//    order: deterministic, no atomics. K2: a query tile, with Q and dO
+//    resident, sweeping key tiles (K, V, bias). K3: a key tile, with K and V
+//    resident, sweeping query tiles (Q, dO, lse, delta). Each warp owns 16
+//    of the 64 rows; its accumulators (dQ, or dK and dV) stay in registers.
+//  * Every operand stays fp32 in shared memory and is split into big and
+//    small halves as its fragment is loaded (3 ALU operations an element).
+//    Splitting the resident tiles once instead would double their shared
+//    memory (139 776 bytes a CTA at d = 64) and leave one CTA of 4 warps per
+//    SM; as it is, 104 960 bytes (K2) and 105 472 (K3) let two share an SM. Registers hold only the
+//    accumulators and the fragments in flight (K3's dK and dV already take
+//    64 a thread). Rows are padded to d + 4 floats, so every fragment load
+//    below is free of bank conflicts.
+//  * The long sums (dq over keys, dk and dv over queries) are not left in
+//    the tensor core's accumulator, whose adds lose precision as a sum grows
+//    over thousands of keys, to near the 1e-4 gate at TransMIL's bag. K2
+//    sums a key tile's part of dQ there and adds it to dQ with an fp32 add;
+//    K3 adds each 3xTF32 product that way (a second set of dK and dV parts
+//    would not fit in registers).
+//  * S (or S^T) and dP leave the MMA in the accumulator layout, where P and
+//    dS are formed in fp32. They feed the next product as the A operand
+//    without any data movement: the 8 keys of a k-step are taken in the
+//    order 0,2,4,6,1,3,5,7, which is what the accumulator layout holds per
+//    thread, and the B operand's rows are read in the same order.
+//  * Swept tiles are double-buffered with cp.async (16 B, .cg; 4 B for the
+//    bias, lse and delta rows), so tile t+1 loads while tile t computes.
+//  * Fully masked key tiles are skipped, exactly, in a slide that has at
+//    least one valid key (found by scanning its bias row): there every
+//    query row's lse is far above -1e30, so a masked key gets P = 0 and
+//    dS = 0 exactly and adds nothing. K2 skips such a key tile without
+//    loading it (a block vote over its 64 biases); K3 writes zeros for such
+//    a tile and returns. A slide with no valid key sweeps every key (P = 1).
+//    The mask is any bias row: the vote is per tile, never from a length.
+//
+// Left for later: warp specialisation (a producer warp for the copies),
+// wgmma with TMA, and persistent CTAs over (b, h, tile).
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 32;  // rows of the reduction axis staged per step
-constexpr int kChunk = 8;  // rows consumed per chunk of the staged tile
+constexpr int kThreads = 128;   // 4 warps, 16 output rows each
+constexpr int kTile = 64;       // output rows per CTA and rows per swept tile
+constexpr int kPad = 4;         // floats of padding per shared row
+constexpr float kMaskedBelow = -1e29f;  // a bias at or below this is a masked key
 
-template <int D>
-struct Layout {
-  static constexpr int TPR = D / 32;          // threads per output row
-  static constexpr int DT4 = 8;               // float4s of a row per thread
-  static constexpr int D4 = D / 4;            // float4s of a row
-  static constexpr int LANES = 32 / TPR;      // rows per warp
-  static constexpr int ROWS = kThreads / TPR; // rows per block
-  static_assert(D == 32 || D == 64, "head dim must be 32 or 64");
-};
+// ---------------------------------------------------------------------------
+// 3xTF32 tensor-core products
+// ---------------------------------------------------------------------------
 
-// this thread's output row within the block and which 32-dim part it holds
-template <int D>
-__device__ __forceinline__ void thread_row(int& row, int& part) {
-  using L = Layout<D>;
-  const int lane = threadIdx.x & 31;
-  part = lane / L::LANES;
-  row = blockIdx.x * L::ROWS + (threadIdx.x >> 5) * L::LANES + lane % L::LANES;
+// x = big + small. big is x rounded to the nearest TF32 value, ties away
+// from zero: what cvt.rna.tf32.f32 gives for a finite x, in two integer
+// operations (on sm_90a ptxas wraps the rounding of cvt.rna.tf32.f32 in a
+// finiteness test and a select, which took most of the split's cost). small =
+// x - big is exact in fp32 and goes to the tensor core as it is, which reads
+// the top 19 bits of a TF32 operand: small is truncated, an error of at most
+// 2^-21 |x|. This is the split of CUTLASS's fast-fp32 tensor-op MMA.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
 }
 
-// the full dot product of a row split over TPR lanes 16 apart
-template <int D>
-__device__ __forceinline__ float row_sum(float x) {
-  if (Layout<D>::TPR == 2) x += __shfl_xor_sync(0xffffffffu, x, 16);
-  return x;
+// c[16x8] += a[16x8] . b[8x8], TF32 in, fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ float dot4(const float* r, float4 t, float acc) {
-  acc = fmaf(r[0], t.x, acc);
-  acc = fmaf(r[1], t.y, acc);
-  acc = fmaf(r[2], t.z, acc);
-  return fmaf(r[3], t.w, acc);
+// c += a . b in 3xTF32 (the small . small term is below fp32 rounding)
+__device__ __forceinline__ void mma3(float* c, const uint32_t* ab, const uint32_t* as,
+                                     const uint32_t* bb, const uint32_t* bs) {
+  mma_tf32(c, ab, bs);
+  mma_tf32(c, as, bb);
+  mma_tf32(c, ab, bb);
 }
 
-__device__ __forceinline__ void axpy4(float a, float4 t, float* r) {
-  r[0] = fmaf(a, t.x, r[0]);
-  r[1] = fmaf(a, t.y, r[1]);
-  r[2] = fmaf(a, t.z, r[2]);
-  r[3] = fmaf(a, t.w, r[3]);
-}
-
-// this thread's 32 dims of row `row` of a [rows, D] matrix, zero past `n`
-template <int D>
-__device__ __forceinline__ void load_part(const float* base, int row, int n, int part,
-                                          float* r) {
-  using L = Layout<D>;
-  if (row < n) {
-    const float4* p = reinterpret_cast<const float4*>(base + (size_t)row * D) + part * L::DT4;
+// the same, formed apart and added to c by an fp32 add (K3's long sums)
+__device__ __forceinline__ void mma3_add(float* c, const uint32_t* ab, const uint32_t* as,
+                                         const uint32_t* bb, const uint32_t* bs) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3(t, ab, as, bb, bs);
 #pragma unroll
-    for (int c = 0; c < L::DT4; ++c) {
-      const float4 t = p[c];
-      r[4 * c] = t.x; r[4 * c + 1] = t.y; r[4 * c + 2] = t.z; r[4 * c + 3] = t.w;
+  for (int e = 0; e < 4; ++e) c[e] += t[e];
+}
+
+// Fragment loads from a row-major shared tile with row stride S. Lane
+// (g = lane / 4, t = lane % 4) holds, for m16n8k8:
+//   A: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+//   B: (k = t, n = g), (k = t + 4, n = g)
+//   C: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
+
+// A fragment of rows [r0, r0 + 16), columns [k0, k0 + 8)
+template <int S>
+__device__ __forceinline__ void load_a(const float* tile, int r0, int k0, uint32_t* ab,
+                                       uint32_t* as) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = tile + (r0 + g) * S + k0 + t;
+  split(p[0], ab[0], as[0]);
+  split(p[8 * S], ab[1], as[1]);
+  split(p[4], ab[2], as[2]);
+  split(p[8 * S + 4], ab[3], as[3]);
+}
+
+// B fragment for X . T^T: n = rows [n0, n0 + 8) of T, k = columns [k0, k0 + 8)
+template <int S>
+__device__ __forceinline__ void load_b_rows_n(const float* tile, int n0, int k0, uint32_t* bb,
+                                              uint32_t* bs) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = tile + (n0 + g) * S + k0 + t;
+  split(p[0], bb[0], bs[0]);
+  split(p[4], bb[1], bs[1]);
+}
+
+// B fragment for X . T: k = rows [k0, k0 + 8) of T in the order 0,2,4,6,
+// 1,3,5,7 (that of a_from_c), n = columns [n0, n0 + 8)
+template <int S>
+__device__ __forceinline__ void load_b_rows_k(const float* tile, int k0, int n0, uint32_t* bb,
+                                              uint32_t* bs) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* p = tile + (k0 + 2 * t) * S + n0 + g;
+  split(p[0], bb[0], bs[0]);
+  split(p[S], bb[1], bs[1]);
+}
+
+// An accumulator fragment (16 rows x 8 columns) as the A operand of the
+// next product, its 8 columns taken in the order 0,2,4,6,1,3,5,7
+__device__ __forceinline__ void a_from_c(const float* c, uint32_t* ab, uint32_t* as) {
+  split(c[0], ab[0], as[0]);
+  split(c[2], ab[1], as[1]);
+  split(c[1], ab[2], as[2]);
+  split(c[3], ab[3], as[3]);
+}
+
+// ---------------------------------------------------------------------------
+// copies
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most one group (the newest) is in flight
+__device__ __forceinline__ void cp_async_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// rows [r0, r0 + kTile) of a [n, D] matrix into a padded shared tile, zero
+// past n (cp.async with source size 0 fills zeros and reads nothing)
+template <int D>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int r0, int n) {
+  constexpr int C = D / 4;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < kTile * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    const bool in = r0 + r < n;
+    cp_async16(dst + r * (D + kPad) + 4 * c, in ? src + (size_t)(r0 + r) * D + 4 * c : src, in);
+  }
+}
+
+// kTile entries [r0, r0 + kTile) of a vector, zero past n
+__device__ __forceinline__ void stage_vec(float* dst, const float* src, int r0, int n) {
+  if (threadIdx.x < kTile) {
+    const bool in = r0 + threadIdx.x < n;
+    cp_async4(dst + threadIdx.x, in ? src + r0 + threadIdx.x : src, in);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// masked key tiles
+// ---------------------------------------------------------------------------
+
+// whether the slide's bias row [n] has a valid key (a block vote; uniform)
+__device__ bool slide_has_key(const float* bias, int n) {
+  for (int base = 0; base < n; base += kThreads) {
+    const int i = base + threadIdx.x;
+    if (__syncthreads_or(i < n && bias[i] > kMaskedBelow)) return true;
+  }
+  return false;
+}
+
+// the first key tile from `t` on that K2 must sweep: any tile where the
+// slide has no valid key, else one with a valid key; nt when none is left.
+// Threads < kTile get the tile's bias entry in `bval` (-inf past n).
+__device__ int next_live_tile(const float* bias, int n, int nt, int t, bool any_key,
+                              float& bval) {
+  for (; t < nt; ++t) {
+    const int i = t * kTile + threadIdx.x;
+    const float bv = threadIdx.x < kTile && i < n ? bias[i] : -INFINITY;
+    if (__syncthreads_or(!any_key || bv > kMaskedBelow)) {
+      bval = bv;
+      return t;
     }
-  } else {
+  }
+  return nt;
+}
+
+// ---------------------------------------------------------------------------
+// K2: dq
+// ---------------------------------------------------------------------------
+
+// one key tile: S = Q K^T and dP = dO V^T (this warp's 16 rows x 64 keys),
+// P and dS, then dQ += dS K
+template <int D>
+__device__ __forceinline__ void dq_tile(const float* qt, const float* ot, const float* kt,
+                                        const float* vt, const float* bt, const float* lse_r,
+                                        const float* delta_r, float (*dqa)[4]) {
+  constexpr int S = D + kPad, NT = kTile / 8, KS = D / 8;
+  const int t = threadIdx.x & 3, r0 = (threadIdx.x >> 5) * 16;
+  float sa[NT][4], pa[NT][4];
 #pragma unroll
-    for (int c = 0; c < 32; ++c) r[c] = 0.f;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_part(float* base, int row, int part, const float* r) {
-  using L = Layout<D>;
-  float4* p = reinterpret_cast<float4*>(base + (size_t)row * D) + part * L::DT4;
+  for (int j = 0; j < NT; ++j) {
 #pragma unroll
-  for (int c = 0; c < L::DT4; ++c) {
-    p[c] = make_float4(r[4 * c], r[4 * c + 1], r[4 * c + 2], r[4 * c + 3]);
+    for (int e = 0; e < 4; ++e) sa[j][e] = pa[j][e] = 0.f;
+  }
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t qab[4], qas[4], oab[4], oas[4];
+    load_a<S>(qt, r0, ks * 8, qab, qas);
+    load_a<S>(ot, r0, ks * 8, oab, oas);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t bb[2], bs[2];
+      load_b_rows_n<S>(kt, j * 8, ks * 8, bb, bs);
+      mma3(sa[j], qab, qas, bb, bs);
+      load_b_rows_n<S>(vt, j * 8, ks * 8, bb, bs);
+      mma3(pa[j], oab, oas, bb, bs);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float2 bias2 = *reinterpret_cast<const float2*>(bt + j * 8 + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = expf(sa[j][e] + ((e & 1) ? bias2.y : bias2.x) - lse_r[e >> 1]);
+      sa[j][e] = p * (pa[j][e] - delta_r[e >> 1]);  // dS
+    }
+  }
+  float part[KS][4];  // this key tile's part of dQ, added to dQ in fp32
+#pragma unroll
+  for (int n = 0; n < KS; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    uint32_t ab[4], as[4];
+    a_from_c(sa[j], ab, as);
+#pragma unroll
+    for (int n = 0; n < KS; ++n) {
+      uint32_t bb[2], bs[2];
+      load_b_rows_k<S>(kt, j * 8, n * 8, bb, bs);
+      mma3(part[n], ab, as, bb, bs);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < KS; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] += part[n][e];
   }
 }
 
-// stage rows [r0, r0 + kTile) of two [n, D] matrices into shared memory,
-// zero past n
+// One CTA per (b, h, tile of kTile queries); sweeps the live key tiles.
 template <int D>
-__device__ __forceinline__ void stage_pair(const float4* a, const float4* b, int r0, int n,
-                                           float4* as, float4* bs) {
-  using L = Layout<D>;
-  const int nvalid = min(kTile, n - r0);
-  for (int i = threadIdx.x; i < kTile * L::D4; i += kThreads) {
-    const bool in = i < nvalid * L::D4;
-    as[i] = in ? a[(size_t)r0 * L::D4 + i] : make_float4(0.f, 0.f, 0.f, 0.f);
-    bs[i] = in ? b[(size_t)r0 * L::D4 + i] : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// K2: dq. One block per (b, h, tile of ROWS queries); loops over key tiles.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ bias,
           const float* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, float* __restrict__ dq,
-          int H, int Nq, int Nk) {
-  using L = Layout<D>;
-  __shared__ __align__(16) float4 ks[kTile * L::D4];
-  __shared__ __align__(16) float4 vs[kTile * L::D4];
-  __shared__ float bs[kTile];
+          const float* __restrict__ delta, float* __restrict__ dq, int H, int Nq, int Nk) {
+  constexpr int S = D + kPad, TILE = kTile * S, KS = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* qt = smem;             // resident Q
+  float* ot = qt + TILE;        // resident dO
+  float* kst = ot + TILE;       // [2][TILE] swept K
+  float* vst = kst + 2 * TILE;  // [2][TILE] swept V
+  float* bst = vst + 2 * TILE;  // [2][kTile] swept bias
 
   const int b = blockIdx.z;
   const size_t bh = (size_t)b * H + blockIdx.y;
-  int row, part;
-  thread_row<D>(row, part);
-  const bool active = row < Nq;
-  const float4* kb = reinterpret_cast<const float4*>(k + bh * Nk * D);
-  const float4* vb = reinterpret_cast<const float4*>(v + bh * Nk * D);
+  const int q0 = blockIdx.x * kTile;
+  const float* kb = k + bh * Nk * D;
+  const float* vb = v + bh * Nk * D;
   const float* biasb = bias + (size_t)b * Nk;
+  const int nt = (Nk + kTile - 1) / kTile;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;
 
-  float qr[32], dor[32], acc[32];
-  load_part<D>(q + bh * Nq * D, row, Nq, part, qr);
-  load_part<D>(dout + bh * Nq * D, row, Nq, part, dor);
-#pragma unroll
-  for (int c = 0; c < 32; ++c) acc[c] = 0.f;
+  stage_rows<D>(qt, q + bh * Nq * D, q0, Nq);  // lands with the first key tile
+  stage_rows<D>(ot, dout + bh * Nq * D, q0, Nq);
   // a query past Nq gets lse = +inf: P = 0 on every key, so it adds nothing
-  const float lse_r = active ? lse[bh * Nq + row] : INFINITY;
-  const float delta_r = active ? delta[bh * Nq + row] : 0.f;
-
-  for (int k0 = 0; k0 < Nk; k0 += kTile) {
-    // keys past Nk are zero with bias -inf: P = 0 and dS = 0, never a NaN
-    stage_pair<D>(kb, vb, k0, Nk, ks, vs);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      bs[i] = k0 + i < Nk ? biasb[k0 + i] : -INFINITY;
-    }
-    __syncthreads();
+  float lse_r[2], delta_r[2];
 #pragma unroll
-    for (int j0 = 0; j0 < kTile; j0 += kChunk) {
-      float ds[kChunk];
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float4* kr = ks + (j0 + j) * L::D4 + part * L::DT4;
-        const float4* vr = vs + (j0 + j) * L::D4 + part * L::DT4;
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int c = 0; c < L::DT4; ++c) {
-          s = dot4(qr + 4 * c, kr[c], s);
-          dp = dot4(dor + 4 * c, vr[c], dp);
-        }
-        s = row_sum<D>(s);
-        dp = row_sum<D>(dp);
-        const float p = expf(s + bs[j0 + j] - lse_r);
-        ds[j] = p * (dp - delta_r);
-      }
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float4* kr = ks + (j0 + j) * L::D4 + part * L::DT4;
-#pragma unroll
-        for (int c = 0; c < L::DT4; ++c) axpy4(ds[j], kr[c], acc + 4 * c);
-      }
-    }
-    __syncthreads();  // the next tile overwrites ks/vs/bs
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + g + 8 * i;
+    lse_r[i] = row < Nq ? lse[bh * Nq + row] : INFINITY;
+    delta_r[i] = row < Nq ? delta[bh * Nq + row] : 0.f;
   }
-  if (active) store_part<D>(dq + bh * Nq * D, row, part, acc);
+  float dqa[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+  }
+
+  const bool any_key = slide_has_key(biasb, Nk);
+  float bval = -INFINITY;
+  // keys past Nk are zero with bias -inf: P = 0 and dS = 0, never a NaN
+  int tile = next_live_tile(biasb, Nk, nt, 0, any_key, bval);
+  int buf = 0;
+  if (tile < nt) {
+    stage_rows<D>(kst, kb, tile * kTile, Nk);
+    stage_rows<D>(vst, vb, tile * kTile, Nk);
+    if (threadIdx.x < kTile) bst[threadIdx.x] = bval;
+  }
+  cp_async_commit();
+  while (tile < nt) {
+    const int next = next_live_tile(biasb, Nk, nt, tile + 1, any_key, bval);
+    if (next < nt) {  // the other buffer was released by the last barrier
+      stage_rows<D>(kst + (buf ^ 1) * TILE, kb, next * kTile, Nk);
+      stage_rows<D>(vst + (buf ^ 1) * TILE, vb, next * kTile, Nk);
+      if (threadIdx.x < kTile) bst[(buf ^ 1) * kTile + threadIdx.x] = bval;
+    }
+    cp_async_commit();
+    cp_async_wait_all_but_one();
+    __syncthreads();
+    dq_tile<D>(qt, ot, kst + buf * TILE, vst + buf * TILE, bst + buf * kTile, lse_r,
+               delta_r, dqa);
+    __syncthreads();  // the next stage overwrites this buffer
+    buf ^= 1;
+    tile = next;
+  }
+
+  float* dqb = dq + bh * Nq * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + g + 8 * i;
+    if (row < Nq) {
+#pragma unroll
+      for (int n = 0; n < KS; ++n) {
+        *reinterpret_cast<float2*>(dqb + (size_t)row * D + n * 8 + 2 * t4) =
+            make_float2(dqa[n][2 * i], dqa[n][2 * i + 1]);
+      }
+    }
+  }
 }
 
-// K3: dk and dv. One block per (b, h, tile of ROWS keys); loops over query
-// tiles, staging q, dO, lse and delta.
+// ---------------------------------------------------------------------------
+// K3: dk and dv
+// ---------------------------------------------------------------------------
+
+// one query tile, 16 queries at a time (to bound the live registers):
+// S^T = K Q^T and dP^T = V dO^T (this warp's 16 keys x 16 queries), P^T and
+// dS^T, then dV += P^T dO and dK += dS^T Q
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void dkv_tile(const float* kt, const float* vt, const float* qt,
+                                         const float* ot,
+                                         const float* lt, const float* dlt, const float* bias_r,
+                                         float (*dka)[4], float (*dva)[4]) {
+  constexpr int S = D + kPad, NH = 2, KS = D / 8;
+  const int t = threadIdx.x & 3, r0 = (threadIdx.x >> 5) * 16;
+#pragma unroll 1
+  for (int part = 0; part < kTile / (8 * NH); ++part) {
+    float sa[NH][4], pa[NH][4];
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sa[j][e] = pa[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t kab[4], kas[4], vab[4], vas[4];
+      load_a<S>(kt, r0, kk * 8, kab, kas);
+      load_a<S>(vt, r0, kk * 8, vab, vas);
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        const int c0 = (part * NH + j) * 8;
+        uint32_t bb[2], bs[2];
+        load_b_rows_n<S>(qt, c0, kk * 8, bb, bs);
+        mma3(sa[j], kab, kas, bb, bs);
+        load_b_rows_n<S>(ot, c0, kk * 8, bb, bs);
+        mma3(pa[j], vab, vas, bb, bs);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      const int col = (part * NH + j) * 8 + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(lt + col);
+      const float2 d2 = *reinterpret_cast<const float2*>(dlt + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(sa[j][e] + bias_r[e >> 1] - ((e & 1) ? l2.y : l2.x));
+        sa[j][e] = p;                                            // P^T
+        pa[j][e] = p * (pa[j][e] - ((e & 1) ? d2.y : d2.x));     // dS^T
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      const int c0 = (part * NH + j) * 8;
+      uint32_t pb[4], ps[4], db[4], ds[4];
+      a_from_c(sa[j], pb, ps);
+      a_from_c(pa[j], db, ds);
+#pragma unroll
+      for (int n = 0; n < KS; ++n) {
+        uint32_t bb[2], bs[2];
+        load_b_rows_k<S>(ot, c0, n * 8, bb, bs);
+        mma3_add(dva[n], pb, ps, bb, bs);
+        load_b_rows_k<S>(qt, c0, n * 8, bb, bs);
+        mma3_add(dka[n], db, ds, bb, bs);
+      }
+    }
+  }
+}
+
+// One CTA per (b, h, tile of kTile keys); sweeps every query tile.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
 dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ bias,
            const float* __restrict__ dout, const float* __restrict__ lse,
            const float* __restrict__ delta, float* __restrict__ dk,
            float* __restrict__ dv, int H, int Nq, int Nk) {
-  using L = Layout<D>;
-  __shared__ __align__(16) float4 qs[kTile * L::D4];
-  __shared__ __align__(16) float4 dos[kTile * L::D4];
-  __shared__ float ls[kTile];
-  __shared__ float dls[kTile];
+  constexpr int S = D + kPad, TILE = kTile * S, KS = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* kt = smem;             // resident K
+  float* vt = kt + TILE;        // resident V
+  float* qst = vt + TILE;       // [2][TILE] swept Q
+  float* ost = qst + 2 * TILE;  // [2][TILE] swept dO
+  float* lst = ost + 2 * TILE;  // [2][kTile] swept lse
+  float* dlst = lst + 2 * kTile;  // [2][kTile] swept delta
 
   const int b = blockIdx.z;
   const size_t bh = (size_t)b * H + blockIdx.y;
-  int row, part;
-  thread_row<D>(row, part);
-  const bool active = row < Nk;
-  const float4* qb = reinterpret_cast<const float4*>(q + bh * Nq * D);
-  const float4* dob = reinterpret_cast<const float4*>(dout + bh * Nq * D);
+  const int k0 = blockIdx.x * kTile;
+  const float* biasb = bias + (size_t)b * Nk;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;
+  float* dkb = dk + bh * Nk * D;
+  float* dvb = dv + bh * Nk * D;
 
-  float kr[32], vr[32], dka[32], dva[32];
-  load_part<D>(k + bh * Nk * D, row, Nk, part, kr);
-  load_part<D>(v + bh * Nk * D, row, Nk, part, vr);
-#pragma unroll
-  for (int c = 0; c < 32; ++c) {
-    dka[c] = 0.f;
-    dva[c] = 0.f;
+  // a fully masked key tile in a slide with a valid key: dk = dv = 0 exactly
+  const int own = k0 + threadIdx.x;
+  const bool live = __syncthreads_or(threadIdx.x < kTile && own < Nk && biasb[own] > kMaskedBelow);
+  if (!live && slide_has_key(biasb, Nk)) {
+    constexpr int C = D / 4;
+    for (int i = threadIdx.x; i < kTile * C; i += kThreads) {
+      const int r = k0 + i / C;
+      if (r < Nk) {
+        const size_t o = (size_t)r * D + 4 * (i % C);
+        *reinterpret_cast<float4*>(dkb + o) = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(dvb + o) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    return;
   }
+
+  const float* qb = q + bh * Nq * D;
+  const float* ob = dout + bh * Nq * D;
+  const float* lb = lse + bh * Nq;
+  const float* db = delta + bh * Nq;
+  const int nt = (Nq + kTile - 1) / kTile;
+  // queries past Nq are zero with lse = delta = 0: their P multiplies a zero
+  // dO row and their dS = P (0 - 0) = 0, so they add exactly nothing
+  stage_rows<D>(kt, k + bh * Nk * D, k0, Nk);  // lands with the first query tile
+  stage_rows<D>(vt, v + bh * Nk * D, k0, Nk);
+  stage_rows<D>(qst, qb, 0, Nq);
+  stage_rows<D>(ost, ob, 0, Nq);
+  stage_vec(lst, lb, 0, Nq);
+  stage_vec(dlst, db, 0, Nq);
+  cp_async_commit();
   // a key past Nk gets bias -inf: P = 0 for every query
-  const float bias_r = active ? bias[(size_t)b * Nk + row] : -INFINITY;
-
-  for (int q0 = 0; q0 < Nq; q0 += kTile) {
-    // queries past Nq are zero with lse +inf and delta 0: P = 0, dS = 0
-    stage_pair<D>(qb, dob, q0, Nq, qs, dos);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const bool in = q0 + i < Nq;
-      ls[i] = in ? lse[bh * Nq + q0 + i] : INFINITY;
-      dls[i] = in ? delta[bh * Nq + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    // one chunk at a time: unrolling across chunks let the compiler hoist
-    // the next chunk's shared loads and spill the row state (k, v, dk, dv)
-#pragma unroll 1
-    for (int i0 = 0; i0 < kTile; i0 += kChunk) {
-      float p[kChunk], ds[kChunk];
+  float bias_r[2];
 #pragma unroll
-      for (int i = 0; i < kChunk; ++i) {
-        const float4* qr = qs + (i0 + i) * L::D4 + part * L::DT4;
-        const float4* dr = dos + (i0 + i) * L::D4 + part * L::DT4;
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int c = 0; c < L::DT4; ++c) {
-          s = dot4(kr + 4 * c, qr[c], s);
-          dp = dot4(vr + 4 * c, dr[c], dp);
-        }
-        s = row_sum<D>(s);
-        dp = row_sum<D>(dp);
-        p[i] = expf(s + bias_r - ls[i0 + i]);
-        ds[i] = p[i] * (dp - dls[i0 + i]);
-      }
-#pragma unroll
-      for (int i = 0; i < kChunk; ++i) {
-        const float4* qr = qs + (i0 + i) * L::D4 + part * L::DT4;
-        const float4* dr = dos + (i0 + i) * L::D4 + part * L::DT4;
-#pragma unroll
-        for (int c = 0; c < L::DT4; ++c) {
-          axpy4(p[i], dr[c], dva + 4 * c);
-          axpy4(ds[i], qr[c], dka + 4 * c);
-        }
-      }
-    }
-    __syncthreads();  // the next tile overwrites qs/dos/ls/dls
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + r0 + g + 8 * i;
+    bias_r[i] = key < Nk ? biasb[key] : -INFINITY;
   }
-  if (active) {
-    store_part<D>(dk + bh * Nk * D, row, part, dka);
-    store_part<D>(dv + bh * Nk * D, row, part, dva);
+  float dka[KS][4], dva[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  }
+
+  for (int tile = 0, buf = 0; tile < nt; ++tile, buf ^= 1) {
+    if (tile + 1 < nt) {  // the other buffer was released by the last barrier
+      const int n0 = (tile + 1) * kTile;
+      stage_rows<D>(qst + (buf ^ 1) * TILE, qb, n0, Nq);
+      stage_rows<D>(ost + (buf ^ 1) * TILE, ob, n0, Nq);
+      stage_vec(lst + (buf ^ 1) * kTile, lb, n0, Nq);
+      stage_vec(dlst + (buf ^ 1) * kTile, db, n0, Nq);
+    }
+    cp_async_commit();
+    cp_async_wait_all_but_one();
+    __syncthreads();
+    dkv_tile<D>(kt, vt, qst + buf * TILE, ost + buf * TILE, lst + buf * kTile,
+                dlst + buf * kTile, bias_r, dka, dva);
+    __syncthreads();  // the next stage overwrites this buffer
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + r0 + g + 8 * i;
+    if (row < Nk) {
+#pragma unroll
+      for (int n = 0; n < KS; ++n) {
+        const size_t o = (size_t)row * D + n * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(dkb + o) = make_float2(dka[n][2 * i], dka[n][2 * i + 1]);
+        *reinterpret_cast<float2*>(dvb + o) = make_float2(dva[n][2 * i], dva[n][2 * i + 1]);
+      }
+    }
   }
 }
 
+// dynamic shared memory: two resident tiles, two double-buffered swept
+// tiles and the swept vectors (K2: bias; K3: lse and delta): 104 960 and
+// 105 472 bytes at d = 64, so two CTAs share an SM
 template <int D>
-dim3 grid_of(int rows, int H, int B) {
-  return dim3((rows + Layout<D>::ROWS - 1) / Layout<D>::ROWS, H, B);
+constexpr size_t dq_smem_bytes() {
+  return (6 * kTile * (D + kPad) + 2 * kTile) * sizeof(float);
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return (6 * kTile * (D + kPad) + 4 * kTile) * sizeof(float);
+}
+
+// raise a kernel's dynamic shared memory limit above 48 KB and ask for the
+// largest shared-memory carveout, so that two CTAs fit an SM. Attributes are
+// set per device, so this runs before every launch, on the current device.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t bytes) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  return static_cast<int>(err);
+}
+
+template <int D>
+int launch_dq(const float* q, const float* k, const float* v, const float* bias,
+              const float* dout, const float* lse, const float* delta, float* dq, int B, int H,
+              int Nq, int Nk, cudaStream_t s) {
+  const int set = allow_smem(dq_kernel<D>, dq_smem_bytes<D>());
+  if (set) return set;
+  const dim3 grid((Nq + kTile - 1) / kTile, H, B);
+  dq_kernel<D><<<grid, kThreads, dq_smem_bytes<D>(), s>>>(q, k, v, bias, dout, lse, delta, dq,
+                                                           H, Nq, Nk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv(const float* q, const float* k, const float* v, const float* bias,
+               const float* dout, const float* lse, const float* delta, float* dk, float* dv,
+               int B, int H, int Nq, int Nk, cudaStream_t s) {
+  const int set = allow_smem(dkv_kernel<D>, dkv_smem_bytes<D>());
+  if (set) return set;
+  const dim3 grid((Nk + kTile - 1) / kTile, H, B);
+  dkv_kernel<D><<<grid, kThreads, dkv_smem_bytes<D>(), s>>>(q, k, v, bias, dout, lse, delta, dk,
+                                                             dv, H, Nq, Nk);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, dO [B,H,Nq,D], k/v [B,H,Nk,D], bias [B,Nk], lse/delta [B,H,Nq],
 // dq [B,H,Nq,D]: contiguous fp32, 16-byte aligned, Nq >= 1, Nk >= 1,
-// D in {32, 64}. Launches on `stream` and returns cudaGetLastError().
+// D in {32, 64}. Launches on `stream` and returns the cudaError_t of the
+// shared-memory attribute or of the launch.
 extern "C" int imp_flash_bwd_dq_f32(const float* q, const float* k, const float* v,
                                     const float* bias, const float* dout, const float* lse,
                                     const float* delta, float* dq, int B, int H, int Nq,
                                     int Nk, int D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 32) {
-    dq_kernel<32><<<grid_of<32>(Nq, H, B), kThreads, 0, s>>>(q, k, v, bias, dout, lse, delta,
-                                                           dq, H, Nq, Nk);
-  } else if (D == 64) {
-    dq_kernel<64><<<grid_of<64>(Nq, H, B), kThreads, 0, s>>>(q, k, v, bias, dout, lse, delta,
-                                                           dq, H, Nq, Nk);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (D == 32) return launch_dq<32>(q, k, v, bias, dout, lse, delta, dq, B, H, Nq, Nk, s);
+  if (D == 64) return launch_dq<64>(q, k, v, bias, dout, lse, delta, dq, B, H, Nq, Nk, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // the same inputs; dk, dv [B,H,Nk,D]
@@ -314,14 +631,24 @@ extern "C" int imp_flash_bwd_dkv_f32(const float* q, const float* k, const float
                                      const float* delta, float* dk, float* dv, int B, int H,
                                      int Nq, int Nk, int D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 32) return launch_dkv<32>(q, k, v, bias, dout, lse, delta, dk, dv, B, H, Nq, Nk, s);
+  if (D == 64) return launch_dkv<64>(q, k, v, bias, dout, lse, delta, dk, dv, B, H, Nq, Nk, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launch layout, for reports and tests: the rows a CTA owns and sweeps
+// per tile (K2 skips and K3 zero-fills masked keys a tile at a time) and
+// each kernel's dynamic shared memory in bytes at head width D.
+extern "C" int imp_flash_bwd_layout(int D, int* tile, int* dq_smem, int* dkv_smem) {
+  *tile = kTile;
   if (D == 32) {
-    dkv_kernel<32><<<grid_of<32>(Nk, H, B), kThreads, 0, s>>>(q, k, v, bias, dout, lse, delta,
-                                                            dk, dv, H, Nq, Nk);
+    *dq_smem = static_cast<int>(dq_smem_bytes<32>());
+    *dkv_smem = static_cast<int>(dkv_smem_bytes<32>());
   } else if (D == 64) {
-    dkv_kernel<64><<<grid_of<64>(Nk, H, B), kThreads, 0, s>>>(q, k, v, bias, dout, lse, delta,
-                                                            dk, dv, H, Nq, Nk);
+    *dq_smem = static_cast<int>(dq_smem_bytes<64>());
+    *dkv_smem = static_cast<int>(dkv_smem_bytes<64>());
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }

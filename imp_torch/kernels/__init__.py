@@ -37,7 +37,8 @@ NVCC_FLAGS = (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: kernel name -> (source under csrc/, {C function: argtypes}); every C
-#: function returns the launch's cudaError_t as an int
+#: function returns a cudaError_t as an int (of the launch, or of a query
+#: such as ``imp_flash_bwd_layout``, which fills its int pointers)
 KERNELS = {
     "flash_fwd": (
         "flash_fwd.cu",
@@ -45,7 +46,8 @@ KERNELS = {
     ),
     "flash_bwd_dq": (
         "flash_bwd.cu",
-        {"imp_flash_bwd_dq_f32": [_P] * 8 + [_I] * 5 + [_P]},
+        {"imp_flash_bwd_dq_f32": [_P] * 8 + [_I] * 5 + [_P],
+         "imp_flash_bwd_layout": [_I] + [ctypes.POINTER(_I)] * 3},
     ),
     "flash_bwd_dkv": (
         "flash_bwd.cu",

@@ -12,7 +12,8 @@
   replace ``_make_dq_kernel`` and ``_make_dkv_kernel``).  Like the TPU's
   ``_bwd_impl`` it takes the row logsumexp and delta = rowsum(dO ⊙ O) from
   the caller, so a ring attention can pass statistics that are global over
-  the ring.
+  the ring.  :func:`flash_bwd_layout` reads their tile and shared memory
+  from the built library.
 * :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
   — the plain versions (the backward also split by kernel,
   :func:`flash_attention_bwd_dq_reference` for K2 and
@@ -215,6 +216,21 @@ def flash_attention_bwd(
             raise RuntimeError(f"flash_bwd_dkv launch failed: cudaError {err}")
         count_launch("flash_bwd_dkv")
     return dq, dk, dv
+
+
+def flash_bwd_layout(d: int) -> dict:
+    """K2/K3's launch layout at head width ``d``, as ``flash_bwd.cu`` sets
+    it: ``tile``, the rows a CTA owns and sweeps per step (masked keys are
+    skipped, or zero-filled, a tile at a time), and each kernel's dynamic
+    shared memory in bytes.  Builds the kernels' library at first use."""
+    from ..kernels import load
+
+    tile, dq_smem, dkv_smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = load("flash_bwd_dq").imp_flash_bwd_layout(
+        d, ctypes.byref(tile), ctypes.byref(dq_smem), ctypes.byref(dkv_smem))
+    if err:
+        raise ValueError(f"flash_bwd has no layout for d = {d}: cudaError {err}")
+    return {"tile": tile.value, "flash_bwd_dq": dq_smem.value, "flash_bwd_dkv": dkv_smem.value}
 
 
 class FlashAttention(torch.autograd.Function):

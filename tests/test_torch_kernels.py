@@ -29,7 +29,10 @@ from imp_torch.ops.flash_attention import (
     flash_attention_bwd_reference,
     flash_attention_fwd,
     flash_attention_reference,
+    flash_bwd_layout,
 )
+
+from chip_smoke import key_valid
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -110,9 +113,12 @@ def test_flash_kernel_matches_plain_on_card(d):
 
 
 def _bwd_inputs(b, h, n, d, lengths, device="cpu"):
-    """q, k, v, bias, dO and the row statistics of K1's forward."""
+    """q, k, v, bias, dO and the row statistics of K1's forward; a slide's
+    keys are a valid prefix or, for ``"tiles"``, chip_smoke's mask of
+    alternate key tiles at the kernels' own tile."""
     q, k, v = _qkv(b, h, n, n, d, seed=9, device=device)
-    valid = torch.arange(n, device=device)[None, :] < torch.tensor(lengths, device=device)[:, None]
+    tile = flash_bwd_layout(d)["tile"] if "tiles" in lengths else None
+    valid = torch.stack([key_valid(n, spec, device, tile) for spec in lengths])
     bias = torch.where(valid, 0.0, NEG_INF)
     g = torch.Generator(device=device).manual_seed(10)
     do = torch.randn(b, h, n, d, generator=g, device=device)
@@ -139,15 +145,17 @@ def test_flash_bwd_wrapper_is_the_plain_version_on_cpu_and_rejects_bad_input():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,lengths", [(32, (1000, 731, 0)), (64, (1000, 731, 1))])
+@pytest.mark.parametrize("d,lengths", [(32, (1000, 731, 0)), (64, (1000, 731, 1)),
+                                       (64, ("tiles", 401))])
 def test_flash_bwd_kernels_match_plain_on_card(d, lengths):
     """K2 and K3 against their plain version on the card (1e-4 relative,
     fp32, other summation order), with a fully masked slide at d = 32
-    (both follow exp(s - lse): P = 1 on every key), and the autograd
-    Function launching K1 then K2 and K3 once each."""
+    (both follow exp(s - lse): P = 1 on every key), a mask that is no
+    prefix (skipped and zero-filled key tiles beside a lone valid key), and
+    the autograd Function launching K1 then K2 and K3 once each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
-    args = _bwd_inputs(3, 8, 1000, d, lengths, device="cuda")
+    args = _bwd_inputs(len(lengths), 8, 1000, d, lengths, device="cuda")
     before = kernels.launches()
     got = flash_attention_bwd(*args)
     ref = flash_attention_bwd_reference(*args)
@@ -157,6 +165,10 @@ def test_flash_bwd_kernels_match_plain_on_card(d, lengths):
     assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
     for a, b in zip(got, ref):
         assert torch.isfinite(a).all() and _rel(a, b) < 1e-4
+    # a masked key of a slide with a valid key gets P = 0: dk = dv = 0 exactly
+    masked = (args[3] < 0) & (args[3] == 0).any(dim=1, keepdim=True)
+    for a in got[1:]:
+        assert (a.transpose(1, 2)[masked] == 0).all()
     q, k, v = (t.clone().requires_grad_() for t in args[:3])
     before = kernels.launches()
     out = flash_attention(q, k, v, mask=args[3] == 0, scale=1.0)
