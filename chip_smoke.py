@@ -10,7 +10,10 @@ Phases, each printing one JSON line (the run fails on the first error):
    card and time it beside its bound, the plain version and, where one
    exists, the one PyTorch call that computes the same function
    (``library_ms``, a yardstick only): K1 (flash forward) at the serving
-   shapes, the 10 000-patch bag envelope and TransMIL's 10 001-token bag;
+   shapes, the 10 000-patch bag envelope (a fully masked slide among
+   them), TransMIL's 10 001-token bag and a 4 096-token batch whose mask
+   is no prefix at K1's own tile, with its 3xTF32 bound beside the
+   fp32-core figure of its first design;
    K2/K3 (flash backward) at TransMIL's bag, the bag envelope with a fully
    masked slide, UMEML_GAN's 17-token decoder, and a 4 096-token batch whose
    mask is no prefix (key tiles alternately valid and masked, one valid key
@@ -332,24 +335,43 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 
 FLASH_SHAPES = [
-    # name, B, H, N, d, valid key counts (None = no mask)
+    # name, B, H, N, d, valid keys per slide (None = no mask; see key_valid)
     ("serve_b8_n7", 8, 8, 7, 32, None),  # omic encoders + decoders, batch B
     ("serve_b16_n14", 16, 8, 14, 32, None),  # bottleneck encoders, batch 2B
     ("bag_n10000_d32", 3, 8, 10000, 32, (10000, 7313, 0)),
     ("bag_n10000_d64", 3, 8, 10000, 64, (10000, 7313, 0)),
     ("transmil_n10001_d64", 1, 8, 10001, 64, (7314,)),  # TransMIL: 7 313 patches + cls
+    ("tiles_n4096_d64", 2, 8, 4096, 64, ("tiles", 4001)),  # a mask that is no prefix
 ]
 #: launches of each serving shape in one eval forward
 FLASH_PER_FORWARD = {"serve_b8_n7": 4, "serve_b16_n14": 2}
 
 
-def flash_bound_ms(b, h, n, d, valid) -> tuple:
-    """The least time for this call's work, and what bounds it: the dot
-    products and exps the valid keys need on the fp32 cores, against q, k,
-    v, bias read once and O, lse written once."""
-    keys = b * n if valid is None else sum(valid)
-    ops = 4 * h * n * keys * d + h * n * keys  # FMA = 2 FLOPs; one op per exp
-    return bound_ms(ops, 4 * (4 * b * h * n * d + b * n + b * h * n))
+def flash_fwd_bounds(b, h, n, d, valid) -> dict:
+    """The least time for K1 on this call's work, the largest of three
+    terms: QK^T and PV (4 FLOPs per (query, key) pair and dim),
+    fp32-accurate on the tensor cores (3xTF32); one exp per pair on the
+    special-function units; q, k, v, bias read once and O, lse written once.
+    Pairs count the keys the data needs: a slide's valid keys (``valid``:
+    counts per slide), or all of them where none is valid (O is then the
+    mean of V).  ``bound_fp32_cores_ms`` is the same work with the products
+    on the fp32 CUDA cores, the route of K1's first design."""
+    keys = b * n if valid is None else sum(v if v else n for v in valid)
+    pairs = h * n * keys
+    nbytes = 4 * (4 * b * h * n * d + b * n + b * h * n)
+    bound, by = tf32x3_bound_ms(4 * pairs * d, pairs, nbytes)
+    return {"bound_ms": bound, "bound_by": by,
+            "bound_fp32_cores_ms": bound_ms(4 * pairs * d + pairs, nbytes)[0]}
+
+
+def tf32x3_bound_ms(flops: float, exps: float, nbytes: float) -> tuple:
+    """The larger of the operations (products of ``flops`` in 3xTF32 on the
+    tensor cores, or ``exps`` on the special-function units, whichever takes
+    longer) and the bytes at the memory rate, in ms, and which one it is."""
+    terms = {"operations": max(flops / PEAK_3XTF32_FLOPS, exps / PEAK_SFU_OPS),
+             "bytes": nbytes / PEAK_BYTES}
+    by = max(terms, key=terms.get)
+    return terms[by] * 1e3, by
 
 
 def bound_ms(ops: float, nbytes: float) -> tuple:
@@ -359,32 +381,37 @@ def bound_ms(ops: float, nbytes: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_kernel(card: str):
+def phase_kernel(card: str, build_report: dict):
+    """K1 against its plain version on the card: O on every slide and lse on
+    slides with a valid key within ``KERNEL_TOL``; timed by events (``ms``)
+    and in the trace (``kernel_device_ms``) beside its bound, the plain
+    version and SDPA's forward on the same inputs and mask."""
     import torch
     import torch.nn.functional as F
 
     from imp_torch import kernels
     from imp_torch.ops.flash_attention import (
-        NEG_INF, flash_attention_fwd, flash_attention_reference,
+        NEG_INF, flash_attention_fwd, flash_attention_reference, flash_fwd_layout,
     )
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's products in fp32
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     rows = {}
-    for name, b, h, n, d, valid in FLASH_SHAPES:
+    for name, b, h, n, d, specs in FLASH_SHAPES:
         q, k, v = (torch.randn(b, h, n, d, device=DEVICE, generator=g) for _ in range(3))
         q = q * d**-0.5
-        if valid is None:
-            bias = torch.zeros(b, n, device=DEVICE)
+        layout = flash_fwd_layout(d)  # the tile and shared memory the kernel launches with
+        if specs is None:
+            bias, valid = torch.zeros(b, n, device=DEVICE), None
         else:
-            lens = torch.tensor(valid, device=DEVICE)
-            bias = torch.where(torch.arange(n, device=DEVICE)[None, :] < lens[:, None], 0.0, NEG_INF)
+            keep = torch.stack([key_valid(n, spec, DEVICE, layout["tile"]) for spec in specs])
+            bias = torch.where(keep, 0.0, NEG_INF)
+            valid = [int(c) for c in keep.sum(dim=1).tolist()]
         with torch.no_grad():
             o, lse = flash_attention_fwd(q, k, v, bias)
             o_ref, lse_ref = flash_attention_reference(q, k, v, bias)
             torch.cuda.synchronize()
-            has_key = torch.ones(b, dtype=torch.bool, device=DEVICE)
-            if valid is not None:
-                has_key = lens > 0
+            has_key = (bias == 0).any(dim=1)
             err_o = (o - o_ref).abs().max().item()
             err_lse = (lse[has_key] - lse_ref[has_key]).abs().max().item()
             finite = bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
@@ -398,18 +425,22 @@ def phase_kernel(card: str):
                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4, scale=1.0),
                 iters,
             )
-        bound, bound_by = flash_bound_ms(b, h, n, d, valid)
+        bounds = flash_fwd_bounds(b, h, n, d, valid)
         row = {
             "phase": "kernel", "kernel": "flash_fwd", "shape": name, "card": card,
-            "B": b, "H": h, "N": n, "d": d, "valid": valid,
+            "B": b, "H": h, "N": n, "d": d, "valid": valid, "mask": specs,
             "max_abs_err_o": err_o, "max_abs_err_lse": err_lse, "tol": KERNEL_TOL,
             "finite": finite, "ms": ms, "kernel_device_ms": dev_ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound, "bound_by": bound_by,
+            "plain_ms": plain_ms, "library_ms": lib_ms, **bounds,
+            "share_of_bound": bounds["bound_ms"] / (dev_ms or ms),
+            "dynamic_smem_bytes": layout["flash_fwd"],
+            "ptxas": ptxas_lines(build_report, "flash_fwd.cu"),
         }
         emit(row)
         require(finite and err_o <= KERNEL_TOL and err_lse <= KERNEL_TOL,
                 f"flash_fwd disagrees with its plain version at {name}: {row}")
+        require(row["share_of_bound"] <= 1.0,
+                f"flash_fwd beats its bound at {name}: the bound is wrong: {row}")
         rows[name] = row
         del q, k, v, o, lse, o_ref, lse_ref
         torch.cuda.empty_cache()
@@ -429,10 +460,10 @@ BWD_MAIN_SHAPE = "transmil_n10001_d64"
 
 def key_valid(n: int, spec, device, tile=None):
     """The valid keys of one slide: a prefix of ``spec`` keys, or, for
-    ``"tiles"``, key tiles of ``tile`` (K2/K3's, ``flash_bwd_layout``)
-    alternately valid and masked, with one valid key alone inside a masked
-    tile (K2 skips a tile by a vote over its biases, K3 zero-fills it, never
-    from a length)."""
+    ``"tiles"``, key tiles of ``tile`` (the kernel's own: ``flash_fwd_layout``
+    for K1, ``flash_bwd_layout`` for K2/K3) alternately valid and masked,
+    with one valid key alone inside a masked tile (K1 and K2 skip a tile by
+    a vote over its biases, K3 zero-fills it, never from a length)."""
     import torch
 
     keys = torch.arange(n, device=device)
@@ -454,16 +485,9 @@ def flash_bwd_bounds(b, h, n, d, valid) -> dict:
     keys = b * n if valid is None else sum(v if v else n for v in valid)
     pairs = h * n * keys
     inputs = 4 * (4 * b * h * n * d + b * n + 2 * b * h * n)
-
-    def bound(products, nbytes):
-        terms = {"operations": max(products / PEAK_3XTF32_FLOPS, pairs / PEAK_SFU_OPS),
-                 "bytes": nbytes / PEAK_BYTES}
-        by = max(terms, key=terms.get)
-        return terms[by] * 1e3, by
-
     return {
-        "flash_bwd_dq": bound(6 * pairs * d, inputs + 4 * b * h * n * d),
-        "flash_bwd_dkv": bound(8 * pairs * d, inputs + 8 * b * h * n * d),
+        "flash_bwd_dq": tf32x3_bound_ms(6 * pairs * d, pairs, inputs + 4 * b * h * n * d),
+        "flash_bwd_dkv": tf32x3_bound_ms(8 * pairs * d, pairs, inputs + 8 * b * h * n * d),
     }
 
 
@@ -1803,7 +1827,7 @@ def main() -> int:
         "torch": torch.__version__, "cuda": torch.version.cuda,
     })
 
-    krows = phase_kernel(card)
+    krows = phase_kernel(card, report)
     brows = phase_flash_bwd(card, report)
     mrows = phase_modularity(card)
     prows = phase_pinv(card, report)

@@ -1,4 +1,4 @@
-// Masked flash-attention forward for Hopper (sm_90a), fp32 in and out.
+// Masked flash-attention forward for Hopper (sm_90a), fp32 in and out (K1).
 //
 // Replaces the Pallas TPU kernel imp_tpu/ops/flash_attention.py::_make_fwd_kernel
 // (launched by _fwd_impl). Same contract: for pre-scaled q and an additive
@@ -10,153 +10,249 @@
 // the TPU, for the caller to mask downstream. Keys past Nk (the ragged edge
 // of the last tile) are excluded here, so the caller pads nothing.
 //
-// What bounds it on the H100: 4*B*H*Nq*Nk*d FLOPs plus B*H*Nq*Nk exps,
-// against q, k, v and O read or written once. The fp32 contract rules out
-// the tensor cores (TF32 keeps ~3 decimal digits), so the ceiling is the
-// 67 TFLOP/s of the fp32 CUDA cores; at the bag envelope (N = 10 000,
-// d = 32) that is ~3 ms against ~12 us of memory traffic: compute-bound.
+// What bounds it on the H100: 4*B*H*Nq*Nk*d FLOPs (QK^T and PV) plus
+// B*H*Nq*Nk exps, against q, k, v and O read or written once: compute-bound.
+// Both products run on the tensor cores in 3xTF32 (tf32x3.cuh), whose
+// ceiling is a third of the 494.7 TFLOP/s TF32 peak: at TransMIL's bag
+// (N = 10 001, 7 314 valid keys, d = 64, 8 heads) ~0.91 ms, where the
+// 67 TFLOP/s fp32 CUDA cores would need 2.24 ms.
 //
-// Design (simple first; wgmma/TMA/pipelining are later work):
-//  * one block of 128 threads per (b, h, 128-row q tile); each thread owns
-//    one query row, held in registers with its running max m, running sum l
-//    and its d-wide accumulator. The TPU's sequential kv grid axis becomes
-//    the loop over key tiles inside the block; no state crosses blocks.
-//  * each key tile (BK keys of K and V, plus their bias) is staged in shared
-//    memory with coalesced 16-byte loads. Every thread of a warp then reads
-//    the SAME shared address (a broadcast, no bank conflicts) as float4, so
-//    one shared load feeds four FMAs per thread.
-//  * the online softmax rescales once per tile, not once per key: the BK
-//    scores of a tile live in registers (BK = 64 at d = 32, 32 at d = 64, so
-//    q, acc and the scores stay within ~160 registers).
+// Design (K2's, flash_bwd.cu, with an online softmax):
+//  * A CTA of 4 warps owns 64 query rows of one (b, h); each warp owns 16.
+//    Q stays resident in shared memory; the CTA sweeps key tiles of 64,
+//    whose K, V and bias are double-buffered with cp.async, so tile t + 1
+//    loads while tile t computes. Rows are padded to d + 4 floats.
+//  * S = Q K^T per warp (16 x 64) in 3xTF32 mma.sync; the bias is added in
+//    the accumulator layout, where each lane holds 2 columns of rows g and
+//    g + 8. The online softmax runs there: the tile's row max is reduced
+//    over the lane quad that shares a row, then m_new, alpha = exp(m - m_new)
+//    and P = exp(s - m_new); each lane keeps its own partial of the row sum
+//    l and the quad adds them only at the end.
+//  * P feeds O += P V as the A operand straight from the accumulator (keys
+//    in the order 0,2,4,6,1,3,5,7, V's rows read in that order). The tile's
+//    part of O is formed in a fresh accumulator and added as
+//    o = o * alpha + part in fp32: the long sum over thousands of keys never
+//    stays in the tensor core's accumulator, whose adds lose precision.
+//  * In a slide with a valid key, a 64-key tile whose biases are all masked
+//    is skipped without being loaded (a block vote per tile, never from a
+//    length): every row's max there is far above -1e30, so such a key has
+//    P = 0 exactly. A slide with no valid key sweeps every key.
+//  * The bias of a key past Nk is set to -inf explicitly (cp.async fills
+//    zeros, which would read as a valid key), so it gets P = 0.
+//
+// Left for later: wgmma with TMA, warp specialisation, persistent CTAs.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // one query row per thread
+// one key tile for this warp's 16 query rows: S = Q K^T + bias, the online
+// softmax update of (m, l), and o = o * alpha + P V. m and l hold rows g
+// and g + 8 of the warp; l is this lane's partial over its own columns.
+template <int D>
+__device__ __forceinline__ void fwd_tile(const float* qt, const float* kt, const float* vt,
+                                         const float* bt, float* m, float* l,
+                                         float (*oa)[4]) {
+  constexpr int S = D + kPad, NT = kTile / 8, KS = D / 8;
+  const int t = threadIdx.x & 3, r0 = (threadIdx.x >> 5) * 16;
+  float sa[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sa[j][e] = 0.f;
+  }
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t qab[4], qas[4];
+    load_a<S>(qt, r0, ks * 8, qab, qas);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t bb[2], bs[2];
+      load_b_rows_n<S>(kt, j * 8, ks * 8, bb, bs);
+      mma3(sa[j], qab, qas, bb, bs);
+    }
+  }
+  float mt[2] = {-INFINITY, -INFINITY};  // the tile's row max
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float2 bias2 = *reinterpret_cast<const float2*>(bt + j * 8 + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sa[j][e] += (e & 1) ? bias2.y : bias2.x;
+      mt[e >> 1] = fmaxf(mt[e >> 1], sa[j][e]);
+    }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+    mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+    // every swept tile holds a key with a finite score, so m_new is finite
+    // and alpha = exp(-inf - m_new) = 0 on the first tile
+    const float m_new = fmaxf(m[i], mt[i]);
+    alpha[i] = expf(m[i] - m_new);
+    m[i] = m_new;
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = expf(sa[j][e] - m[e >> 1]);
+      sa[j][e] = p;
+      l[e >> 1] += p;
+    }
+  }
+  float part[KS][4];  // this key tile's part of O, added to O in fp32
+#pragma unroll
+  for (int n = 0; n < KS; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    uint32_t ab[4], as[4];
+    a_from_c(sa[j], ab, as);
+#pragma unroll
+    for (int n = 0; n < KS; ++n) {
+      uint32_t bb[2], bs[2];
+      load_b_rows_k<S>(vt, j * 8, n * 8, bb, bs);
+      mma3(part[n], ab, as, bb, bs);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < KS; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oa[n][e] = oa[n][e] * alpha[e >> 1] + part[n][e];
+  }
+}
 
-template <int D, int BK>
-__global__ void __launch_bounds__(kThreads)
+// One CTA per (b, h, tile of kTile queries); sweeps the live key tiles.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ bias,
-                 float* __restrict__ o, float* __restrict__ lse,
-                 int H, int Nq, int Nk) {
-  static_assert(D % 4 == 0, "head dim must be a multiple of 4");
-  constexpr int D4 = D / 4;
-  __shared__ __align__(16) float4 ks[BK * D4];
-  __shared__ __align__(16) float4 vs[BK * D4];
-  __shared__ float bs[BK];
+                 float* __restrict__ o, float* __restrict__ lse, int H, int Nq, int Nk) {
+  constexpr int S = D + kPad, TILE = kTile * S, KS = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* qt = smem;             // resident Q
+  float* kst = qt + TILE;       // [2][TILE] swept K
+  float* vst = kst + 2 * TILE;  // [2][TILE] swept V
+  float* bst = vst + 2 * TILE;  // [2][kTile] swept bias
 
   const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = row < Nq;
-  const size_t bh = (size_t)b * H + h;
-  const float4* kb = reinterpret_cast<const float4*>(k + bh * Nk * D);
-  const float4* vb = reinterpret_cast<const float4*>(v + bh * Nk * D);
+  const size_t bh = (size_t)b * H + blockIdx.y;
+  const int q0 = blockIdx.x * kTile;
+  const float* kb = k + bh * Nk * D;
+  const float* vb = v + bh * Nk * D;
   const float* biasb = bias + (size_t)b * Nk;
+  const int nt = (Nk + kTile - 1) / kTile;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;
 
-  float qr[D];
-  float acc[D];
-  if (active) {
-    const float4* q4 = reinterpret_cast<const float4*>(q + (bh * Nq + row) * D);
+  // lands with the first key tile; queries past Nq are zero and never stored
+  stage_rows<D>(qt, q + bh * Nq * D, q0, Nq);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float oa[KS][4];
 #pragma unroll
-    for (int c = 0; c < D4; ++c) {
-      const float4 t = q4[c];
-      qr[4 * c] = t.x; qr[4 * c + 1] = t.y; qr[4 * c + 2] = t.z; qr[4 * c + 3] = t.w;
-    }
-  } else {
+  for (int n = 0; n < KS; ++n) {
 #pragma unroll
-    for (int c = 0; c < D; ++c) qr[c] = 0.f;
+    for (int e = 0; e < 4; ++e) oa[n][e] = 0.f;
   }
-#pragma unroll
-  for (int c = 0; c < D; ++c) acc[c] = 0.f;
-  float m = -INFINITY;  // running max
-  float l = 0.f;        // running sum of exp(s - m)
 
-  for (int k0 = 0; k0 < Nk; k0 += BK) {
-    const int nvalid = min(BK, Nk - k0);
-    // stage the key tile; rows past the ragged edge are zero with bias -inf,
-    // so they add exp(-inf) * 0 = 0 and never a NaN
-    for (int i = threadIdx.x; i < BK * D4; i += kThreads) {
-      const bool in = i < nvalid * D4;
-      ks[i] = in ? kb[(size_t)k0 * D4 + i] : make_float4(0.f, 0.f, 0.f, 0.f);
-      vs[i] = in ? vb[(size_t)k0 * D4 + i] : make_float4(0.f, 0.f, 0.f, 0.f);
+  const bool any_key = slide_has_key(biasb, Nk);
+  float bval = -INFINITY;
+  // keys past Nk are zero with bias -inf (set here, not by cp.async): P = 0
+  int tile = next_live_tile(biasb, Nk, nt, 0, any_key, bval);
+  int buf = 0;
+  if (tile < nt) {
+    stage_rows<D>(kst, kb, tile * kTile, Nk);
+    stage_rows<D>(vst, vb, tile * kTile, Nk);
+    if (threadIdx.x < kTile) bst[threadIdx.x] = bval;
+  }
+  cp_async_commit();
+  while (tile < nt) {
+    const int next = next_live_tile(biasb, Nk, nt, tile + 1, any_key, bval);
+    if (next < nt) {  // the other buffer was released by the last barrier
+      stage_rows<D>(kst + (buf ^ 1) * TILE, kb, next * kTile, Nk);
+      stage_rows<D>(vst + (buf ^ 1) * TILE, vb, next * kTile, Nk);
+      if (threadIdx.x < kTile) bst[(buf ^ 1) * kTile + threadIdx.x] = bval;
     }
-    for (int i = threadIdx.x; i < BK; i += kThreads) {
-      bs[i] = i < nvalid ? biasb[k0 + i] : -INFINITY;
-    }
+    cp_async_commit();
+    cp_async_wait_all_but_one();
     __syncthreads();
-
-    float s[BK];
-    float m_tile = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int c = 0; c < D4; ++c) {
-        const float4 kk = ks[j * D4 + c];
-        dot = fmaf(qr[4 * c], kk.x, dot);
-        dot = fmaf(qr[4 * c + 1], kk.y, dot);
-        dot = fmaf(qr[4 * c + 2], kk.z, dot);
-        dot = fmaf(qr[4 * c + 3], kk.w, dot);
-      }
-      s[j] = dot + bs[j];
-      m_tile = fmaxf(m_tile, s[j]);
-    }
-    // every tile holds at least one key with a finite score, so m_new is
-    // finite and exp(-inf - m_new) = 0 on the first tile
-    const float m_new = fmaxf(m, m_tile);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int c = 0; c < D; ++c) acc[c] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float p = expf(s[j] - m_new);
-      l += p;
-#pragma unroll
-      for (int c = 0; c < D4; ++c) {
-        const float4 vv = vs[j * D4 + c];
-        acc[4 * c] = fmaf(p, vv.x, acc[4 * c]);
-        acc[4 * c + 1] = fmaf(p, vv.y, acc[4 * c + 1]);
-        acc[4 * c + 2] = fmaf(p, vv.z, acc[4 * c + 2]);
-        acc[4 * c + 3] = fmaf(p, vv.w, acc[4 * c + 3]);
-      }
-    }
-    m = m_new;
-    __syncthreads();  // the next tile overwrites ks/vs/bs
+    fwd_tile<D>(qt, kst + buf * TILE, vst + buf * TILE, bst + buf * kTile, m, l, oa);
+    __syncthreads();  // the next stage overwrites this buffer
+    buf ^= 1;
+    tile = next;
   }
 
-  if (active) {
-    const float inv = 1.f / l;  // l >= 1: the max score contributes exp(0)
-    float4* o4 = reinterpret_cast<float4*>(o + (bh * Nq + row) * D);
+  float* ob = o + bh * Nq * D;
 #pragma unroll
-    for (int c = 0; c < D4; ++c) {
-      o4[c] = make_float4(acc[4 * c] * inv, acc[4 * c + 1] * inv,
-                          acc[4 * c + 2] * inv, acc[4 * c + 3] * inv);
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = q0 + r0 + g + 8 * i;
+    if (row < Nq) {
+      const float inv = 1.f / l[i];  // l >= 1: the max score contributes exp(0)
+#pragma unroll
+      for (int n = 0; n < KS; ++n) {
+        *reinterpret_cast<float2*>(ob + (size_t)row * D + n * 8 + 2 * t4) =
+            make_float2(oa[n][2 * i] * inv, oa[n][2 * i + 1] * inv);
+      }
+      if (t4 == 0) lse[bh * Nq + row] = m[i] + logf(l[i]);
     }
-    lse[bh * Nq + row] = m + logf(l);
   }
+}
+
+// dynamic shared memory: resident Q, double-buffered K and V, and the
+// double-buffered bias: 87 552 bytes at d = 64, so two CTAs share an SM
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  return (5 * kTile * (D + kPad) + 2 * kTile) * sizeof(float);
+}
+
+template <int D>
+int launch_fwd(const float* q, const float* k, const float* v, const float* bias, float* o,
+               float* lse, int B, int H, int Nq, int Nk, cudaStream_t s) {
+  const int set = allow_smem(flash_fwd_kernel<D>, fwd_smem_bytes<D>());
+  if (set) return set;
+  const dim3 grid((Nq + kTile - 1) / kTile, H, B);
+  flash_fwd_kernel<D><<<grid, kThreads, fwd_smem_bytes<D>(), s>>>(q, k, v, bias, o, lse, H,
+                                                                  Nq, Nk);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q [B,H,Nq,D], k/v [B,H,Nk,D], bias [B,Nk], o [B,H,Nq,D], lse [B,H,Nq]:
 // contiguous fp32, 16-byte aligned, Nq >= 1, Nk >= 1, D in {32, 64}.
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// Launches on `stream` and returns the cudaError_t of the shared-memory
+// attribute or of the launch (0 = launched).
 extern "C" int imp_flash_fwd_f32(const float* q, const float* k, const float* v,
                                  const float* bias, float* o, float* lse,
                                  int B, int H, int Nq, int Nk, int D,
                                  void* stream) {
-  const dim3 grid((Nq + kThreads - 1) / kThreads, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 32) return launch_fwd<32>(q, k, v, bias, o, lse, B, H, Nq, Nk, s);
+  if (D == 64) return launch_fwd<64>(q, k, v, bias, o, lse, B, H, Nq, Nk, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launch layout, for reports and tests: the rows a CTA owns and the keys
+// it sweeps per tile (masked key tiles are skipped a tile at a time), and
+// the kernel's dynamic shared memory in bytes at head width D.
+extern "C" int imp_flash_fwd_layout(int D, int* tile, int* smem) {
+  *tile = kTile;
   if (D == 32) {
-    flash_fwd_kernel<32, 64><<<grid, kThreads, 0, s>>>(q, k, v, bias, o, lse, H, Nq, Nk);
+    *smem = static_cast<int>(fwd_smem_bytes<32>());
   } else if (D == 64) {
-    flash_fwd_kernel<64, 32><<<grid, kThreads, 0, s>>>(q, k, v, bias, o, lse, H, Nq, Nk);
+    *smem = static_cast<int>(fwd_smem_bytes<64>());
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }

@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  A library is built at first use, named by a hash of its source
-and flags, under ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``); a later run with the same source loads it again.  Several
+and flags and of every header ``csrc/*.cuh`` (the sources include them),
+under ``build/kernels/`` at the root of the checkout (listed in
+``.gitignore``); a later run with the same sources loads it again.  Several
 kernels may share one source and its library (K2 and K3 live in
 ``flash_bwd.cu``, K4 and K5 in ``modularity.cu``, K6 and K7 in ``pinv.cu``).
 :func:`build` starts one ``nvcc`` per source, all at once.
@@ -42,7 +43,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "flash_fwd": (
         "flash_fwd.cu",
-        {"imp_flash_fwd_f32": [_P] * 6 + [_I] * 5 + [_P]},
+        {"imp_flash_fwd_f32": [_P] * 6 + [_I] * 5 + [_P],
+         "imp_flash_fwd_layout": [_I] + [ctypes.POINTER(_I)] * 2},
     ),
     "flash_bwd_dq": (
         "flash_bwd.cu",
@@ -105,9 +107,13 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """The shared library of kernel ``name``: one per source, so kernels
-    that share a source share a build."""
+    that share a source share a build.  Its name hashes the source, every
+    header of ``csrc`` and the flags, so an edited header is rebuilt."""
     source = CSRC / KERNELS[name][0]
     digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 

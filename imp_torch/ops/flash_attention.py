@@ -6,7 +6,8 @@
   ``imp_tpu/ops/flash_attention.py::_make_fwd_kernel``).  It takes
   pre-scaled q, k, v ``[B, H, N, d]`` and an additive key-bias row
   ``[B, Nk]`` (0 valid / -1e30 masked) and returns O and the row
-  logsumexp.
+  logsumexp.  :func:`flash_fwd_layout` reads its tile and shared memory
+  from the built library.
 * :func:`flash_attention_bwd` — the wrapper of the two Hopper kernels of
   ``imp_torch/csrc/flash_bwd.cu`` (K2 for dq, then K3 for dk and dv; they
   replace ``_make_dq_kernel`` and ``_make_dkv_kernel``).  Like the TPU's
@@ -216,6 +217,20 @@ def flash_attention_bwd(
             raise RuntimeError(f"flash_bwd_dkv launch failed: cudaError {err}")
         count_launch("flash_bwd_dkv")
     return dq, dk, dv
+
+
+def flash_fwd_layout(d: int) -> dict:
+    """K1's launch layout at head width ``d``, as ``flash_fwd.cu`` sets it:
+    ``tile``, the query rows a CTA owns and the keys it sweeps per step
+    (masked key tiles are skipped a tile at a time), and its dynamic shared
+    memory in bytes.  Builds the kernel's library at first use."""
+    from ..kernels import load
+
+    tile, smem = ctypes.c_int(), ctypes.c_int()
+    err = load("flash_fwd").imp_flash_fwd_layout(d, ctypes.byref(tile), ctypes.byref(smem))
+    if err:
+        raise ValueError(f"flash_fwd has no layout for d = {d}: cudaError {err}")
+    return {"tile": tile.value, "flash_fwd": smem.value}
 
 
 def flash_bwd_layout(d: int) -> dict:

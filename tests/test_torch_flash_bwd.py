@@ -222,3 +222,75 @@ def test_tf32_split_model_of_the_backward(passes):
         assert max(errs.values()) <= 1e-5, errs
     else:
         assert min(errs.values()) > 1e-4, errs
+
+
+def _flash_fwd_model(q, k, v, bias, mm, tile=64):
+    """K1's algorithm on the CPU: key tiles of ``tile`` swept with an online
+    softmax, both products by ``mm``, each tile's part of O added to O in
+    fp32 (o * alpha + part), fully masked tiles skipped in slides that have
+    a valid key, and keys past Nk zero with bias -inf (what the kernel's
+    cp.async zero-fill and its explicit bias give).  Returns (O, lse, the
+    tiles swept per slide)."""
+    b, h, n, _ = q.shape
+    nk = k.shape[2]
+    nt = -(-nk // tile)
+    pad = nt * tile - nk
+    k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (k, v))
+    bias = torch.cat([bias, torch.full((b, pad), float("-inf"))], dim=1)
+    valid = bias > -1e29
+    any_key = valid.any(dim=1)
+    m = torch.full((b, h, n), float("-inf"))
+    l = torch.zeros(b, h, n)
+    o = torch.zeros_like(q)
+    swept = torch.zeros(b, dtype=torch.int64)
+    for t in range(nt):
+        keys = slice(t * tile, (t + 1) * tile)
+        live = valid[:, keys].any(dim=1) | ~any_key
+        s = mm(q, k[:, :, keys].transpose(-1, -2)) + bias[:, None, None, keys]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_new = l * alpha + p.sum(dim=-1)
+        o_new = o * alpha[..., None] + mm(p, v[:, :, keys])
+        sel = live[:, None, None]
+        m, l = torch.where(sel, m_new, m), torch.where(sel, l_new, l)
+        o = torch.where(sel[..., None], o_new, o)
+        swept += live
+    return o / l[..., None], m + torch.log(l), swept
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_tf32_split_model_of_the_forward(passes):
+    """The numerics and masking of the Hopper K1 modelled on the CPU
+    (:func:`_flash_fwd_model`): with every product in 3xTF32, O on every
+    slide and lse on slides with a valid key stay within 1e-5 of JAX's
+    ``flash_attention`` (absolute, as K1's card gate measures), while one
+    TF32 pass per product does not stay within that 1e-4 gate.  Slide 0 alternates valid and
+    masked 64-key tiles, with one valid key alone in the masked, ragged
+    last tile (keys 192..199 of 200); slide 1 has no valid key (the mean of
+    V over its 200 true keys).  Like the backward's model, this documents
+    the route and rehearses the skip and edge semantics; the kernel itself
+    is held by the 1e-4 card gates (``chip_smoke.py`` and
+    ``test_flash_kernel_matches_plain_on_card``)."""
+    b, h, n, d = 2, 4, 200, 64
+    rng = np.random.default_rng(12)
+    q = rng.normal(size=(b, h, n, d)).astype(np.float32) * d**-0.5
+    k, v = (rng.normal(size=(b, h, n, d)).astype(np.float32) for _ in range(2))
+    mask = np.zeros((b, n), dtype=bool)
+    mask[0] = (np.arange(n) // 64) % 2 == 0
+    mask[0, 197] = True
+    bias = _t(np.where(mask, 0.0, NEG_INF))
+    want_o = np.asarray(jflash.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), scale=1.0))
+    _, want_lse = jflash.flash_attention_partial(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask))
+    want_lse = np.asarray(want_lse)[:1]  # lse only where the slide has a valid key
+    mm = _mm_3xtf32 if passes == 3 else _mm_1xtf32
+    o, lse, swept = _flash_fwd_model(_t(q), _t(k), _t(v), bias, mm)
+    assert swept.tolist() == [3, 4]  # tile 1 of slide 0 skipped; slide 1 sweeps all
+    errs = {"o": np.abs(o.numpy() - want_o).max(),
+            "lse": np.abs(lse[:1].numpy() - want_lse).max()}
+    if passes == 3:
+        assert max(errs.values()) <= 1e-5, errs
+    else:
+        assert min(errs.values()) > 1e-4, errs

@@ -30,6 +30,7 @@ from imp_torch.ops.flash_attention import (
     flash_attention_fwd,
     flash_attention_reference,
     flash_bwd_layout,
+    flash_fwd_layout,
 )
 
 from chip_smoke import key_valid
@@ -87,14 +88,28 @@ def test_flash_wrapper_rejects_bad_input():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [32, 64])
-def test_flash_kernel_matches_plain_on_card(d):
+@pytest.mark.parametrize("d,n,lengths", [
+    (32, 1000, (1000, 731, 0)),
+    (64, 1000, (1000, 731, 0)),
+    (64, 1000, ("tiles", 0)),  # no prefix: skipped tiles, a lone key; a slide with none
+    (32, 7, None),  # a serving shape: one ragged tile, no mask
+    (64, 130, (130, 67)),  # N not a multiple of the tile
+])
+def test_flash_kernel_matches_plain_on_card(d, n, lengths):
+    """K1 against its plain version on the card: O on every slide and lse
+    on slides with a valid key within 1e-4 (fp32, other summation order),
+    one launch per call.  Every N here has a ragged last key tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
-    b, h, n = 3, 8, 1000
+    b, h = (8, 8) if lengths is None else (len(lengths), 8)
     q, k, v = _qkv(b, h, n, n, d, device="cuda")
-    valid = torch.arange(n, device="cuda")[None, :] < torch.tensor([n, 731, 0], device="cuda")[:, None]
-    bias = torch.where(valid, 0.0, NEG_INF)
+    if lengths is None:
+        bias = torch.zeros(b, n, device="cuda")
+    else:
+        tile = flash_fwd_layout(d)["tile"] if "tiles" in lengths else None
+        valid = torch.stack([key_valid(n, spec, "cuda", tile) for spec in lengths])
+        bias = torch.where(valid, 0.0, NEG_INF)
+    has_key = (bias == 0).any(dim=1)
     before = kernels.launches()["flash_fwd"]
     with torch.no_grad():
         o, lse = flash_attention_fwd(q, k, v, bias)
@@ -102,7 +117,7 @@ def test_flash_kernel_matches_plain_on_card(d):
         assert kernels.launches()["flash_fwd"] == before + 1
         o_ref, lse_ref = flash_attention_reference(q, k, v, bias)
     assert (o - o_ref).abs().max().item() < 1e-4
-    assert (lse[:2] - lse_ref[:2]).abs().max().item() < 1e-4
+    assert (lse[has_key] - lse_ref[has_key]).abs().max().item() < 1e-4
     assert torch.isfinite(o).all() and torch.isfinite(lse).all()
     # a CUDA tensor never falls back: what the kernel does not take raises
     with pytest.raises(TypeError, match="float32"):
@@ -110,6 +125,26 @@ def test_flash_kernel_matches_plain_on_card(d):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, bias)
 
+
+def test_library_path_hashes_the_shared_header(tmp_path, monkeypatch):
+    """A library's name hashes its source and every ``csrc/*.cuh``: editing
+    the header that K1 and K2/K3 include names new libraries for both, so a
+    stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in (REPO / "imp_torch" / "csrc").iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    assert (csrc / "tf32x3.cuh").is_file()
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    before = {name: kernels.library_path(name) for name in names}
+    assert before["flash_bwd_dq"] == before["flash_bwd_dkv"]  # one source, one build
+    assert kernels.library_path("flash_fwd") == before["flash_fwd"]  # deterministic
+    header = csrc / "tf32x3.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: kernels.library_path(name) for name in names}
+    assert all(after[name] != before[name] for name in names)
+    assert all(after[name].parent == kernels.BUILD_DIR for name in names)
 
 
 def _bwd_inputs(b, h, n, d, lengths, device="cpu"):
