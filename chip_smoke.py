@@ -19,12 +19,16 @@ Phases, each printing one JSON line (the run fails on the first error):
    mask is no prefix (key tiles alternately valid and masked, one valid key
    alone in a masked tile, and a ragged slide), with ``ptxas``'s registers
    and spills and each CTA's dynamic shared memory; K4/K5 (modularity degree
-   and combined passes) at the training batch of ``UMEML_GAN.yaml`` and at
-   a batch with a fully masked slide; K6/K7 (the fused Newton-Schulz
-   pseudo-inverse, forward and backward) on softmax rows at UMEML's
-   TransLayers (batch 2: 16 matrices of 128), UMEML_GAN's at batch 8 (64 of
-   128) and TransMIL's (8 of 256), with the fused mode's gradient against
-   autograd through the chain of products, and the chain's own times.
+   and combined passes: a sweep of the upper triangle and a column
+   reduction each, timed together) at the training batch of
+   ``UMEML_GAN.yaml`` and at a batch with a fully masked slide, a second
+   launch of each against the first bit for bit, with the 3xTF32 bound
+   beside the fp32-core figure, ``ptxas`` and the shared memory; K6/K7
+   (the fused Newton-Schulz pseudo-inverse, forward and backward) on
+   softmax rows at UMEML's TransLayers (batch 2: 16 matrices of 128),
+   UMEML_GAN's at batch 8 (64 of 128) and TransMIL's (8 of 256), with the
+   fused mode's gradient against autograd through the chain of products,
+   and the chain's own times.
 3. ``serve_flash`` — the serving path: UMEML_GAN at the full width of
    ``configs/Survival/UMEML_GAN.yaml`` (hidden 256, bags padded to
    10 000 x 512, 1 000 genes in 6 groups, exported batch 8) with
@@ -300,12 +304,19 @@ def device_rows(events):
     return [e for e in events or () if e.device_type == DeviceType.CUDA]
 
 
+def device_ms_by(fn, kernel_names, iters: int = 20) -> dict:
+    """Mean device time per call of ``fn`` of each CUDA kernel whose name
+    holds one of ``kernel_names``; None where the trace holds no device time
+    for it."""
+    rows = device_rows(profiled(fn, iters))
+    totals = {k: sum(e.self_device_time_total for e in rows if k in e.key) for k in kernel_names}
+    return {k: v / iters / 1e3 if v else None for k, v in totals.items()}
+
+
 def device_ms(fn, kernel_name: str, iters: int = 20):
     """Mean device time of the CUDA kernel named ``kernel_name`` per call of
     ``fn``; None where the trace holds no device time for it."""
-    total = sum(e.self_device_time_total for e in device_rows(profiled(fn, iters))
-                if kernel_name in e.key)
-    return total / iters / 1e3 if total else None
+    return device_ms_by(fn, (kernel_name,), iters)[kernel_name]
 
 
 def device_busy_ms(fn, iters: int = 5):
@@ -620,23 +631,44 @@ MOD_TEMP = 0.1
 HIDDEN = 256
 
 
-def modularity_bounds(b, n, d, lengths, p_counts) -> dict:
+def modularity_bounds(b, n, d, lengths, p_counts, tile=64) -> dict:
     """The least time for each pass over this batch, counted over the upper
-    triangle of (i, j) pairs within each slide's valid length, as the TPU
-    kernels sweep it: a d-deep dot product (2d FLOPs) plus the ReLU and the
-    sum per pair for K4; for K5 also the scaling by 1/e (3) and, per set of
-    P prototypes, P products, P - 1 compares, the tanh, s1, q, the weight
-    and the dC select-adds (2P + 10).  Bytes: x read once, outputs once."""
+    triangle of (i, j) pairs within each slide's valid length, as the
+    kernels sweep it: the largest of four terms.  ``products``: a d-deep dot
+    product (2d FLOPs) per pair, fp32-accurate on the tensor cores
+    (3xTF32).  ``chain``: the rest on the fp32 cores, per pair the ReLU and
+    the sum for K4; for K5 the scaling by 1/e (3) and, per set of P
+    prototypes, P products, P - 1 compares, s1, q, the weight and the dC
+    select-adds (2P + 10).  ``tanh``: one per pair and set on the
+    special-function units.  ``bytes``: x read once, outputs written once,
+    and the column-side partials of every off-diagonal tile pair written and
+    read once (1 vector of ``tile`` floats for K4, sum(P) for K5).  Returns
+    per kernel ``bound_ms``, ``bound_by``, the terms (``bound_terms_ms``)
+    and ``bound_fp32_cores_ms``: the products and the chain on the fp32
+    cores, the route of the first design."""
     pairs = sum(m * (m + 1) // 2 for m in lengths)
+    tile_pairs = sum((v := -(-m // tile)) * (v - 1) // 2 for m in lengths)
     x_bytes = 4 * b * n * d
     c_bytes = 4 * b * n * sum(p_counts)
-    return {
-        "modularity_deg": bound_ms(pairs * (2 * d + 2), x_bytes + 4 * b * n),
-        "modularity_combined": bound_ms(
-            pairs * (2 * d + 3 + sum(2 * p + 10 for p in p_counts)),
-            x_bytes + 2 * c_bytes + 4 * b * n + 4 * b,
-        ),
+    chain = {"modularity_deg": 2, "modularity_combined": 3 + sum(2 * p + 10 for p in p_counts)}
+    nbytes = {
+        "modularity_deg": x_bytes + 4 * b * n + 2 * 4 * tile_pairs * tile,
+        "modularity_combined": (x_bytes + 2 * c_bytes + 4 * b * n + 4 * b
+                                + 2 * 4 * tile_pairs * tile * sum(p_counts)),
     }
+    out = {}
+    for name in chain:
+        terms = {
+            "products": pairs * 2 * d / PEAK_3XTF32_FLOPS * 1e3,
+            "chain": pairs * chain[name] / PEAK_FP32_FLOPS * 1e3,
+            "tanh": pairs * len(p_counts) / PEAK_SFU_OPS * 1e3 if name == "modularity_combined" else 0.0,
+            "bytes": nbytes[name] / PEAK_BYTES * 1e3,
+        }
+        top = max(terms, key=terms.get)
+        out[name] = {"bound_ms": terms[top], "bound_by": "bytes" if top == "bytes" else "operations",
+                     "bound_terms_ms": terms,
+                     "bound_fp32_cores_ms": bound_ms(pairs * (2 * d + chain[name]), nbytes[name])[0]}
+    return out
 
 
 def rel_err(got, want) -> float:
@@ -644,8 +676,16 @@ def rel_err(got, want) -> float:
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
-def phase_modularity(card):
-    """K4 and K5 against their plain versions on the card, and timed."""
+MOD_KERNEL_SYMBOLS = {  # every kernel each wrapper launches: the sweep, then the column reduction
+    "modularity_deg": ("deg_kernel", "deg_reduce_kernel"),
+    "modularity_combined": ("combined_kernel", "combined_reduce_kernel"),
+}
+
+
+def phase_modularity(card: str, build_report: dict):
+    """K4 and K5 against their plain versions on the card, a second launch
+    of each against the first (bit for bit), and timed: events around the
+    wrapper (``ms``) and the device time of every kernel it launches."""
     import torch
 
     from imp_torch import kernels
@@ -690,35 +730,52 @@ def phase_modularity(card):
             masked_zero = all(deg[i].abs().max().item() == 0.0 and
                               all(d[i].abs().max().item() == 0.0 for d in dcs)
                               for i, m in enumerate(lengths) if m == 0)
-            times = {
-                "modularity_deg": (
-                    cuda_ms(lambda: M.deg_cuda(norm_x, lens), 10),
-                    device_ms(lambda: M.deg_cuda(norm_x, lens), "deg_kernel", iters=5),
-                    cuda_ms(lambda: M.degree_reference(norm_x), 3, warmup=1),
-                ),
-                "modularity_combined": (
-                    cuda_ms(lambda: M.combined_cuda(norm_x, cs, deg_ref, inv_e, MOD_TEMP, lens), 10),
-                    device_ms(lambda: M.combined_cuda(norm_x, cs, deg_ref, inv_e, MOD_TEMP, lens),
-                              "combined_kernel", iters=5),
-                    cuda_ms(lambda: M.combined_reference(norm_x, cs, deg_ref, inv_e, MOD_TEMP), 3, warmup=1),
-                ),
+            # no atomics: a second launch on the same input gives the same bits
+            again = M.combined_cuda(norm_x, cs, deg_ref, inv_e, MOD_TEMP, lens)
+            same_bits = {
+                "modularity_deg": bool(torch.equal(M.deg_cuda(norm_x, lens), deg)),
+                "modularity_combined": bool(
+                    torch.equal(again[0], s1) and torch.equal(again[1], q)
+                    and all(torch.equal(a, r) for a, r in zip(again[2], dcs))),
             }
+            del again
+            calls = {
+                "modularity_deg": (lambda: M.deg_cuda(norm_x, lens),
+                                   lambda: M.degree_reference(norm_x)),
+                "modularity_combined": (
+                    lambda: M.combined_cuda(norm_x, cs, deg_ref, inv_e, MOD_TEMP, lens),
+                    lambda: M.combined_reference(norm_x, cs, deg_ref, inv_e, MOD_TEMP)),
+            }
+            times = {kname: (cuda_ms(fn, 10), device_ms_by(fn, MOD_KERNEL_SYMBOLS[kname], iters=5),
+                             cuda_ms(plain, 3, warmup=1))
+                     for kname, (fn, plain) in calls.items()}
         bounds = modularity_bounds(b, n, HIDDEN, lengths, p_counts)
+        layout = M.modularity_layout(n, HIDDEN, len(p_counts))
         for kname in ("modularity_deg", "modularity_combined"):
-            ms, dev_ms, plain_ms = times[kname]
-            bound, bound_by = bounds[kname]
+            ms, by_kernel, plain_ms = times[kname]
+            require(all(v is not None for v in by_kernel.values()),
+                    f"the trace holds no device time for a kernel of {kname} at {name}: {by_kernel}")
+            dev_ms = sum(by_kernel.values())
             row = {
                 "phase": "kernel", "kernel": kname, "shape": name, "card": card,
                 "B": b, "N": n, "D": HIDDEN, "valid": lengths, "P": p_counts,
                 **errs[kname], "tol_rel": KERNEL_TOL, "finite": finite,
-                "masked_slide_zero": masked_zero, "ms": ms, "kernel_device_ms": dev_ms,
-                "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
-                "share_of_bound": bound / ms,
+                "masked_slide_zero": masked_zero, "same_bits_twice": same_bits[kname],
+                "ms": ms, "kernel_device_ms": dev_ms, "kernel_device_ms_by": by_kernel,
+                "plain_ms": plain_ms, "library_ms": None, **bounds[kname],
+                "share_of_bound": bounds[kname]["bound_ms"] / dev_ms,
+                "tile": layout["tile"], "workspace_bytes": 4 * b * layout["slots"] * layout["tile"]
+                * (1 if kname == "modularity_deg" else sum(p_counts)),
+                "dynamic_smem_bytes": layout[kname],
+                "ptxas": ptxas_lines(build_report, "modularity.cu"),
             }
             emit(row)
             rels = [v for k, v in errs[kname].items() if k.endswith("_rel")]
             require(finite and masked_zero and max(rels) <= KERNEL_TOL,
                     f"{kname} disagrees with its plain version at {name}: {row}")
+            require(same_bits[kname], f"{kname}: two launches on the same input differ at {name}")
+            require(row["share_of_bound"] <= 1.0,
+                    f"{kname} beats its bound at {name}: the bound is wrong: {row}")
             rows[(kname, name)] = row
         del x, norm_x, cs, deg, deg_ref, dcs, dcs_ref
         torch.cuda.empty_cache()
@@ -1373,7 +1430,7 @@ def plain_modularity():
 
 
 FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "dq_kernel", "dkv_kernel")
-MOD_KERNEL_NAMES = ("deg_kernel", "combined_kernel")
+MOD_KERNEL_NAMES = MOD_KERNEL_SYMBOLS["modularity_deg"] + MOD_KERNEL_SYMBOLS["modularity_combined"]
 
 
 def grads_check(loss_and_grads, plain, names):
@@ -1829,7 +1886,7 @@ def main() -> int:
 
     krows = phase_kernel(card, report)
     brows = phase_flash_bwd(card, report)
-    mrows = phase_modularity(card)
+    mrows = phase_modularity(card, report)
     prows = phase_pinv(card, report)
     with tempfile.TemporaryDirectory(prefix="imp_torch_smoke_") as tmp:
         _, counts = phase_serve("flash", card, tmp)
@@ -1857,6 +1914,11 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for (k, _), r in mrows.items() if k == name),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
+            "kernel_device_ms_by": main["kernel_device_ms_by"],
+            "bound_fp32_cores_ms": main["bound_fp32_cores_ms"],
+            "share_of_bound": main["share_of_bound"], "same_bits_twice": main["same_bits_twice"],
+            "dynamic_smem_bytes": main["dynamic_smem_bytes"],
+            "ptxas": main["ptxas"],
         }
 
     def flash_bwd_entry(name):

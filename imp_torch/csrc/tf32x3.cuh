@@ -1,5 +1,9 @@
-// Primitives shared by the flash-attention kernels for Hopper (sm_90a):
-// K1 (flash_fwd.cu) and K2/K3 (flash_bwd.cu).
+// Primitives shared by the 3xTF32 tensor-core kernels for Hopper (sm_90a):
+// the flash-attention kernels K1 (flash_fwd.cu) and K2/K3 (flash_bwd.cu),
+// and the modularity passes K4/K5 (modularity.cu: split, mma3,
+// load_b_rows_n, the cp.async copies, stage_vec and allow_smem; their
+// resident row tile has a run-time stride, so they form A fragments as
+// load_a does, in place).
 //
 //  * 3xTF32 tensor-core products: an fp32 operand x is split into
 //    big = x rounded to TF32 and small = x - big, and

@@ -57,11 +57,13 @@ KERNELS = {
     ),
     "modularity_deg": (
         "modularity.cu",
-        {"imp_modularity_deg_f32": [_P] * 3 + [_I] * 3 + [_P]},
+        {"imp_modularity_deg_f32": [_P] * 4 + [_I] * 3 + [_P],
+         "imp_modularity_layout": [_I] * 3 + [ctypes.POINTER(_I)] * 4},
     ),
     "modularity_combined": (
         "modularity.cu",
-        {"imp_modularity_combined_f32": [_P] * 10 + [_I] * 6 + [_F, _P]},
+        {"imp_modularity_combined_f32": [_P] * 11 + [_I] * 6 + [_F, _P],
+         "imp_modularity_layout": [_I] * 3 + [ctypes.POINTER(_I)] * 4},
     ),
     "pinv_fwd": (
         "pinv.cu",

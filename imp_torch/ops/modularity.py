@@ -12,11 +12,16 @@ The O(N²) reductions over a slide's bag run in two streaming passes:
    q and the prototype cotangent dC: :func:`combined_cuda`, the wrapper of
    K5 (replacing ``_combined_kernel``).
 
-Each wrapper launches its kernel on a CUDA tensor (or raises) and runs its
-plain version, :func:`degree_reference` / :func:`combined_reference`, on a
-CPU tensor.  :func:`modularity_passes_reference` chains the two plain
-versions — a transcription of the JAX ``_scan_passes`` — and
-:func:`modularity_passes` chains the wrappers.
+Both kernels sweep the upper triangle of 64 × 64 tiles once and add the
+column side of each off-diagonal tile through a workspace of partials,
+which the wrapper allocates (:func:`modularity_layout` gives its size) and a
+second launch adds in a fixed order: two calls on the same input give the
+same bits.  Each wrapper launches its kernels on a CUDA tensor (or raises)
+and runs its plain version, :func:`degree_reference` /
+:func:`combined_reference`, on a CPU tensor.
+:func:`modularity_passes_reference` chains the two plain versions — a
+transcription of the JAX ``_scan_passes`` — and :func:`modularity_passes`
+chains the wrappers.
 
 :class:`ModularityTraces` is the ``torch.autograd.Function`` of the JAX
 ``custom_vjp``: its forward returns the traces and saves dC, its backward
@@ -146,6 +151,30 @@ def _cuda_args(norm_x: torch.Tensor, lengths: Optional[torch.Tensor]):
     return b, n, d, lengths.contiguous()
 
 
+def modularity_layout(n: int, d: int, k: int = 1) -> dict:
+    """K4/K5's launch layout for a bag of ``n`` rows of width ``d`` and ``k``
+    prototype sets, as ``modularity.cu`` sets it: ``tile``, the rows a CTA
+    owns and the columns of each swept tile; ``slots``, the column-side
+    partials per slide (each one vector of ``tile`` floats per output
+    vector: 1 for K4, P0 + P1 for K5); and each kernel's dynamic shared
+    memory in bytes.  Builds the kernels' library at first use."""
+    from ..kernels import load
+
+    out = [ctypes.c_int() for _ in range(4)]
+    err = load("modularity_deg").imp_modularity_layout(n, d, k, *map(ctypes.byref, out))
+    if err:
+        raise ValueError(f"modularity has no layout for n = {n}, d = {d}, k = {k}: cudaError {err}")
+    tile, slots, deg_smem, combined_smem = (v.value for v in out)
+    return {"tile": tile, "slots": slots, "modularity_deg": deg_smem,
+            "modularity_combined": combined_smem}
+
+
+def _workspace(b: int, n: int, d: int, k: int, vectors: int, device) -> torch.Tensor:
+    """The column-side partials of one launch: [B, slots, vectors, tile]."""
+    lay = modularity_layout(n, d, k)
+    return torch.empty((b, lay["slots"], vectors, lay["tile"]), dtype=torch.float32, device=device)
+
+
 def deg_cuda(norm_x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Degrees [B, N] by kernel K4 on CUDA, by the plain version on CPU.
     ``lengths`` (int32 [B]) bounds each slide's non-zero rows; computed from
@@ -157,9 +186,11 @@ def deg_cuda(norm_x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> to
 
     lib = load("modularity_deg")
     deg = torch.empty((b, n), dtype=torch.float32, device=norm_x.device)
+    work = _workspace(b, n, d, 1, 1, norm_x.device)
     stream = torch.cuda.current_stream(norm_x.device).cuda_stream
     err = lib.imp_modularity_deg_f32(
-        norm_x.data_ptr(), lengths.data_ptr(), deg.data_ptr(), b, n, d, ctypes.c_void_p(stream),
+        norm_x.data_ptr(), lengths.data_ptr(), deg.data_ptr(), work.data_ptr(), b, n, d,
+        ctypes.c_void_p(stream),
     )
     if err:
         raise RuntimeError(f"modularity_deg launch failed: cudaError {err}")
@@ -198,11 +229,12 @@ def combined_cuda(
     q_part = torch.empty_like(s1_part)
     dcs = [torch.empty_like(C) for C in Cs]
     c1, dc1 = (Cs[1], dcs[1]) if k == 2 else (Cs[0], dcs[0])
+    work = _workspace(b, n, d, k, sum(ps), norm_x.device)
     stream = torch.cuda.current_stream(norm_x.device).cuda_stream
     err = lib.imp_modularity_combined_f32(
         norm_x.data_ptr(), lengths.data_ptr(), Cs[0].data_ptr(), c1.data_ptr(),
         deg.data_ptr(), inv_e.data_ptr(), s1_part.data_ptr(), q_part.data_ptr(),
-        dcs[0].data_ptr(), dc1.data_ptr(), b, n, d, k, ps[0], ps[-1],
+        dcs[0].data_ptr(), dc1.data_ptr(), work.data_ptr(), b, n, d, k, ps[0], ps[-1],
         ctypes.c_float(1.0 / temp), ctypes.c_void_p(stream),
     )
     if err:

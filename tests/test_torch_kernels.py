@@ -238,10 +238,12 @@ def _rel(a, b):
 def test_modularity_kernels_match_plain_on_card(p_counts):
     """K4 and K5 against their plain versions on the card: degrees, the
     per-set scalars and dC to 1e-4 relative (fp32, different summation
-    order), at ragged lengths with a fully masked slide."""
+    order), at lengths that are no multiple of the 64-row tile (1000 and
+    731: 16 and 12 valid tiles, an even and an odd half sweep), a fully
+    masked slide and a one-token slide; two launches give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
-    norm_x, cs = _bag(3, 1000, 256, (1000, 731, 0), p_counts, device="cuda")
+    norm_x, cs = _bag(4, 1000, 256, (1000, 731, 0, 1), p_counts, device="cuda")
     before = kernels.launches()
     deg = M.deg_cuda(norm_x)
     deg_ref = M.degree_reference(norm_x)
@@ -256,8 +258,15 @@ def test_modularity_kernels_match_plain_on_card(p_counts):
     assert _rel(s1, s1_ref) < 1e-4 and _rel(q, q_ref) < 1e-4
     for dc, dc_ref in zip(dcs, dcs_ref):
         assert _rel(dc, dc_ref) < 1e-4
-    # the fully masked slide is exactly zero
-    assert deg[2].abs().max().item() == 0.0 and dcs[0][2].abs().max().item() == 0.0
+    # the fully masked slide and the one-token slide (no pair) are exactly zero
+    for i in (2, 3):
+        assert deg[i].abs().max().item() == 0.0
+        assert all(dc[i].abs().max().item() == 0.0 for dc in dcs)
+    # no atomics: a second launch on the same input gives the same bits
+    again = M.combined_cuda(norm_x, cs, deg_ref, (1.0 / e).contiguous(), 0.1)
+    assert torch.equal(M.deg_cuda(norm_x), deg)
+    assert torch.equal(again[0], s1) and torch.equal(again[1], q)
+    assert all(torch.equal(a, b) for a, b in zip(again[2], dcs))
     # a CUDA tensor never falls back: what the kernel does not take raises
     with pytest.raises(TypeError, match="float32"):
         M.deg_cuda(norm_x.double())

@@ -12,6 +12,12 @@ and 0 of 50 tokens, two prototype sets (P = 3 and 5, and the model's 6 and
 
 Tolerance rtol 1e-4, atol 1e-6: float32 on both sides with different
 summation orders (the same bound the JAX package holds its two backends to).
+
+Last, a CPU model of the Hopper K4/K5 route (``imp_torch/csrc/modularity.cu``):
+the cyclic half sweep of the upper triangle at a 16-row tile, the row side
+of each tile plus the transposed column side, the column partials added in
+the kernels' fixed order, and every x̂x̂ᵀ product in 3xTF32, held to 1e-5
+(norm-wise) against both JAX backends.
 """
 
 import jax
@@ -161,3 +167,169 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
         M.combined_cuda(meta, [torch.zeros(1, 2, 4, device="meta")],
                         torch.zeros(1, 4, device="meta"), torch.zeros(1, device="meta"), 0.1,
                         torch.zeros(1, dtype=torch.int32, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# a CPU model of the Hopper route of K4/K5
+# ---------------------------------------------------------------------------
+
+MODEL_TILE = 16
+
+
+def _tf32(x, nearest=True):
+    """``x`` (float32) cut to TF32's 10 mantissa bits by integer bit
+    operations: rounded to nearest, ties away from zero (the kernels' split),
+    or truncated (what the tensor core reads of an fp32 operand)."""
+    bits = x.contiguous().view(torch.int32)
+    if nearest:
+        bits = bits + 0x1000
+    return (bits & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernels form x̂_I x̂_Jᵀ: big = tf32(x), small = x - big
+    (truncated by the tensor core), big.small + small.big + big.big."""
+    ab, bb = _tf32(a), _tf32(b)
+    a_s, b_s = _tf32(a - ab, nearest=False), _tf32(b - bb, nearest=False)
+    return ab @ b_s + a_s @ bb + ab @ bb
+
+
+def _half_sweep(nvb):
+    """The column tiles each row tile I sweeps, d = 0 (its diagonal) first:
+    J = (I + d) mod nvb up to ``last_step`` of ``modularity.cu``."""
+    return [[(i + d) % nvb for d in range((nvb - 1) // 2 + (nvb % 2 == 0 and i < nvb // 2) + 1)]
+            for i in range(nvb)]
+
+
+def _swept(x, sweep, tile, step):
+    """Run ``step(I, J, d, a)`` over the sweep on A = relu(x̂_I x̂_Jᵀ) in
+    3xTF32 (zero diagonal on J = I); returns {(I, d): column partial}."""
+    cols = {}
+    for i, js in enumerate(sweep):
+        xi = x[i * tile:(i + 1) * tile]
+        for d, j in enumerate(js):
+            a = torch.relu(_mm_3xtf32(xi, x[j * tile:(j + 1) * tile].T))
+            if d == 0:
+                a.fill_diagonal_(0.0)
+            col = step(i, j, d, a)
+            if d:
+                cols[i, d] = col
+    return cols
+
+
+def _add_columns(rows, cols, sweep, scale=1.0):
+    """Row side plus, per column tile T, its partials in the order of d."""
+    nvb = len(sweep)
+    out = rows.clone()
+    for t in range(nvb):
+        for d in range(1, nvb):
+            i = (t - d) % nvb
+            if d < len(sweep[i]):
+                out[..., t, :] = out[..., t, :] + scale * cols[i, d]
+    return out
+
+
+def _modularity_model(norm_x, Cs, temp, tile=MODEL_TILE):
+    """K4 then K5 as ``modularity.cu`` computes them: (traces, dCs, deg)."""
+    b, n, _ = norm_x.shape
+    nb = -(-n // tile)
+    pad = nb * tile - n
+    xs = torch.nn.functional.pad(norm_x, (0, 0, 0, pad))
+    cps = [torch.nn.functional.pad(C, (0, pad)) for C in Cs]
+    lens = M._valid_lengths(norm_x).tolist()
+    deg = torch.zeros(b, nb, tile)
+    for s in range(b):
+        sweep = _half_sweep(-(-lens[s] // tile))
+        rows = torch.zeros(nb, tile)
+
+        def deg_step(i, j, d, a):
+            rows[i] += a.sum(dim=1)
+            return a.sum(dim=0)
+
+        cols = _swept(xs[s], sweep, tile, deg_step)
+        deg[s, :len(sweep)] = _add_columns(rows, cols, sweep)[:len(sweep)]
+    deg = deg.reshape(b, -1)
+    e = deg.sum(dim=1).clamp_min(1e-12)
+    inv_e, inv_temp = 1.0 / e, 1.0 / temp
+    s1 = torch.zeros(len(Cs), b)
+    q = torch.zeros(len(Cs), b)
+    dcs = [torch.zeros(C.shape[0], C.shape[1], nb, tile) for C in Cs]
+    for s in range(b):
+        sweep = _half_sweep(-(-lens[s] // tile))
+        rows = [torch.zeros(C.shape[1], nb, tile) for C in Cs]
+        tiles = lambda v, i: v[..., i * tile:(i + 1) * tile]  # noqa: E731
+
+        def combined_step(i, j, d, a):
+            dd = tiles(deg[s], i)[:, None] * tiles(deg[s], j)[None, :]
+            amdd = (a - dd * inv_e[s]) * inv_e[s]
+            sym = 2.0 if d else 1.0
+            col = []
+            for k, cp in enumerate(cps):
+                ci, cj = tiles(cp[s], i), tiles(cp[s], j)
+                best, bp = ci[0][:, None] * cj[0][None, :], torch.zeros(tile, tile, dtype=torch.int64)
+                for p in range(1, cp.shape[1]):
+                    term = ci[p][:, None] * cj[p][None, :]
+                    take = term > best
+                    best, bp = torch.where(take, term, best), torch.where(take, p, bp)
+                delta = torch.tanh(best * inv_temp)
+                s1[k, s] += sym * (a * delta).sum()
+                q[k, s] += sym * (delta * dd).sum()
+                w = amdd * ((1.0 - delta * delta) * inv_temp)
+                for p in range(cp.shape[1]):
+                    m = w * (bp == p)
+                    rows[k][p, i] += m @ cj[p]
+                col.append(torch.stack([(w * (bp == p)).T @ ci[p] for p in range(cp.shape[1])]))
+            return col
+
+        cols = _swept(xs[s], sweep, tile, combined_step)
+        for k in range(len(Cs)):
+            per_set = {key: v[k] for key, v in cols.items()}
+            dcs[k][s][:, :len(sweep)] = _add_columns(2.0 * rows[k], per_set, sweep, 2.0)[:, :len(sweep)]
+    dcs = [dc.reshape(dc.shape[0], dc.shape[1], -1)[..., :n] for dc in dcs]
+    return tuple((s1[k] - q[k] / e) / e for k in range(len(Cs))), dcs, deg[:, :n]
+
+
+def test_half_sweep_covers_each_tile_pair_once():
+    """The kernels' cyclic half sweep: every unordered pair of valid tiles
+    once, the diagonal tile first, and every CTA within one tile of the
+    others."""
+    for nvb in range(1, 14):
+        sweep = _half_sweep(nvb)
+        pairs = [tuple(sorted((i, j))) for i, js in enumerate(sweep) for j in js]
+        assert sorted(pairs) == [(i, j) for i in range(nvb) for j in range(i, nvb)]
+        assert all(js[0] == i for i, js in enumerate(sweep))
+        assert max(map(len, sweep)) - min(map(len, sweep)) <= 1
+
+
+def _rel(got, want):
+    want = np.asarray(want)
+    return float(np.abs(np.asarray(got) - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+@pytest.mark.parametrize("backend", ["scan", "pallas_interpret"])
+@pytest.mark.parametrize("lengths", [(50, 37, 0), (50, 1, 0)], ids=["ragged", "one_token"])
+@pytest.mark.parametrize("p_counts", [(6, 7), (3, 5), (4,)])
+def test_hopper_route_model_matches_jax(jax_block16, backend, lengths, p_counts):
+    """The Hopper route modelled on the CPU (:func:`_modularity_model`):
+    degrees, traces and dC within 1e-5 of JAX. N = 50 is no multiple of the
+    16-row tile; the slides sweep 4 (even) and 3 (odd) or 1 valid tiles, and
+    none. Like the flash models, this calls no kernel: the kernels are held
+    by the 1e-4 card gates (``chip_smoke.py``,
+    ``test_modularity_kernels_match_plain_on_card``)."""
+    x, cs, valid = _inputs(p_counts, seed=13, lengths=lengths)
+    nx, Cs = _jax_prepared(x, cs, valid)
+    if backend == "scan":
+        want_t, want_d = JM._scan_passes(nx, Cs, 0.1)
+    else:
+        want_t, want_d = JM._pallas_passes(nx, Cs, 0.1, interpret=True)
+    norm_x, tCs = M._prepare([torch.from_numpy(c) for c in cs], torch.from_numpy(x),
+                             torch.from_numpy(valid))
+    got_t, got_d, deg = _modularity_model(norm_x, tCs, 0.1)
+    errs = {"deg": _rel(deg, JM._deg_xla(nx))}
+    errs.update({f"trace{k}": _rel(g, w) for k, (g, w) in enumerate(zip(got_t, want_t))})
+    errs.update({f"dC{k}": _rel(g, w) for k, (g, w) in enumerate(zip(got_d, want_d))})
+    assert max(errs.values()) <= 1e-5, errs
+    # slides with no pair give exactly zero
+    for s in (i for i, m in enumerate(lengths) if m <= 1):
+        assert float(deg[s].abs().max()) == 0.0
+        assert all(float(d[s].abs().max()) == 0.0 for d in got_d)
