@@ -808,15 +808,19 @@ PINV_BWD_KERNEL_PRODUCTS = 4 * (PINV_ITERS - 1) + 11 * PINV_ITERS
 
 def pinv_bounds(g, m, iters=PINV_ITERS) -> dict:
     """The least time for K6 and K7 on g m x m matrices: the products each
-    function needs (2 m^3 FLOPs each, :func:`pinv_products`) at the fp32
-    peak, against x (and g_out) read once and z (or dx and dcp) written
-    once."""
+    function needs (2 m^3 FLOPs each, :func:`pinv_products`) in 3xTF32 on
+    the tensor cores, against x (and g_out) read once and z (or dx and dcp)
+    written once; ``bound_fp32_cores_ms`` is the same work with the products
+    on the fp32 CUDA cores, the route of the first design."""
     products = pinv_products(iters)
     product = 2 * m**3 * g
-    return {
-        "pinv_fwd": bound_ms(products["pinv_fwd"] * product, 4 * (2 * g * m * m + 1)),
-        "pinv_bwd": bound_ms(products["pinv_bwd"] * product, 4 * (3 * g * m * m + g + 1)),
-    }
+    nbytes = {"pinv_fwd": 4 * (2 * g * m * m + 1), "pinv_bwd": 4 * (3 * g * m * m + g + 1)}
+    out = {}
+    for name, n in products.items():
+        bound, by = tf32x3_bound_ms(n * product, 0, nbytes[name])
+        out[name] = {"bound_ms": bound, "bound_by": by,
+                     "bound_fp32_cores_ms": bound_ms(n * product, nbytes[name])[0]}
+    return out
 
 
 def ptxas_lines(report: dict, source: str) -> list:
@@ -827,10 +831,12 @@ def ptxas_lines(report: dict, source: str) -> list:
 
 
 def phase_pinv(card: str, build_report: dict):
-    """K6 and K7 against their plain versions on the card, the fused mode's
-    gradient against autograd through the chain, and the times of each:
-    the kernels' device time from the trace, the plain versions', and the
-    chain's forward and forward + backward (the path they replace)."""
+    """K6 and K7 against their plain versions on the card, a second launch
+    of each against the first (bit for bit), the fused mode's gradient
+    against autograd through the chain, and the times of each: the kernels'
+    device time from the trace, the plain versions', and the chain's forward
+    and forward + backward (the path they replace); with the launch layout
+    the built library reports (``pinv_layout``)."""
     import torch
 
     from imp_torch import kernels
@@ -866,6 +872,11 @@ def phase_pinv(card: str, build_report: dict):
                              "max_abs_ref": dx_ref.abs().max().item()},
             }
             finite = all(bool(torch.isfinite(t).all()) for t in (z, dx, dcp))
+            # no atomics: a second launch on the same input gives the same bits
+            dx2, dcp2 = P.pinv_bwd(x, c, g_out)
+            same_bits = {"pinv_fwd": bool(torch.equal(P.pinv_fwd(x, c), z)),
+                         "pinv_bwd": bool(torch.equal(dx2, dx) and torch.equal(dcp2, dcp))}
+            del dx2, dcp2
         fused_vs_chain = rel_err(grad_of("fused"), grad_of("chain"))
         with torch.no_grad():
             times = {
@@ -884,24 +895,35 @@ def phase_pinv(card: str, build_report: dict):
         chain["fwd_bwd_ms"] = cuda_ms(lambda: grad_of("chain"), 5, warmup=1)
         chain["fused_fwd_bwd_ms"] = cuda_ms(lambda: grad_of("fused"), 5, warmup=1)
         bounds = pinv_bounds(g, m)
+        layout = P.pinv_layout(m, PINV_ITERS)
         for kname in ("pinv_fwd", "pinv_bwd"):
             ms, event_ms, plain_ms = times[kname]
             require(ms is not None, f"the trace holds no device time for {kname} at {name}")
-            bound, bound_by = bounds[kname]
+            kernel_products = (PINV_BWD_KERNEL_PRODUCTS if kname == "pinv_bwd"
+                               else pinv_products()[kname])
+            waves = -(-g // layout[kname]["clusters_at_once"])  # clusters run in turns
             row = {
                 "phase": "kernel", "kernel": kname, "shape": name, "card": card, "g": g, "m": m,
                 "iters": PINV_ITERS, **errs[kname], "fused_vs_chain_grad_rel": fused_vs_chain,
-                "tol_rel": KERNEL_TOL, "finite": finite, "ms": ms, "event_ms": event_ms,
-                "plain_ms": plain_ms,
+                "tol_rel": KERNEL_TOL, "finite": finite, "same_bits_twice": same_bits[kname],
+                "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
                 "library_ms": None,  # no one PyTorch call runs Newton-Schulz steps
-                "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / ms,
-                "bound_products": pinv_products()[kname],
-                "kernel_products": (PINV_BWD_KERNEL_PRODUCTS if kname == "pinv_bwd"
-                                    else pinv_products()[kname]),
+                **bounds[kname], "share_of_bound": bounds[kname]["bound_ms"] / ms,
+                "share_of_fp32_bound": bounds[kname]["bound_fp32_cores_ms"] / ms,
+                "bound_products": pinv_products()[kname], "kernel_products": kernel_products,
+                "cluster": layout["cluster"], "threads": layout["threads"],
+                "dynamic_smem_bytes": layout[kname]["smem_bytes"],
+                "clusters_at_once": layout[kname]["clusters_at_once"], "waves": waves,
+                # what one cluster spends on each of its band products, run in turn
+                "us_per_product": 1e3 * ms / waves / kernel_products,
+                "workspace_bytes": 4 * g * layout[kname]["ws_floats"],
                 "chain": chain, "ptxas": ptxas_lines(build_report, "pinv.cu"),
             }
             emit(row)
             rows[(kname, name)] = row
+            require(same_bits[kname], f"{kname}: two launches on the same input differ at {name}")
+            require(row["share_of_bound"] <= 1.0,
+                    f"{kname} beats its bound at {name}: the bound is wrong: {row}")
         rels = [v for e in errs.values() for k, v in e.items() if k.endswith("_rel")]
         require(finite and max(rels) <= KERNEL_TOL and fused_vs_chain <= KERNEL_TOL,
                 f"K6/K7 disagree with their plain versions or the chain at {name}: {errs}, "
@@ -1939,6 +1961,10 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for (k, _), r in prows.items() if k == name),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None, "chain": main["chain"],
+            "bound_fp32_cores_ms": main["bound_fp32_cores_ms"],
+            "share_of_bound": main["share_of_bound"], "same_bits_twice": main["same_bits_twice"],
+            "cluster": main["cluster"], "dynamic_smem_bytes": main["dynamic_smem_bytes"],
+            "ptxas": main["ptxas"],
         }
 
     emit({"kernels": [

@@ -67,11 +67,12 @@ KERNELS = {
     ),
     "pinv_fwd": (
         "pinv.cu",
-        {"imp_pinv_fwd_f32": [_P] * 4 + [_I] * 3 + [_P]},
+        {"imp_pinv_fwd_f32": [_P] * 4 + [_I] * 3 + [_P],
+         "imp_pinv_layout": [_I] * 2 + [ctypes.POINTER(_I)] * 8},
     ),
     "pinv_bwd": (
         "pinv.cu",
-        {"imp_pinv_bwd_f32": [_P] * 7 + [_I] * 3 + [_P]},
+        {"imp_pinv_bwd_f32": [_P] * 6 + [_I] * 3 + [_P]},
     ),
 }
 

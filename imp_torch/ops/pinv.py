@@ -5,11 +5,18 @@
   (``pinv_fwd_kernel``; it replaces the Pallas TPU kernel
   ``imp_tpu/ops/pinv_kernel.py::_fwd_kernel``): for each of g matrices
   x ``[g, m, m]``, z0 = xᵀ / c and ``iters`` steps of
-  z ← ¼·z(13I − y(15I − y(7I − y))), y = xz, in true fp32.
+  z ← ¼·z(13I − y(15I − y(7I − y))), y = xz, fp32-accurate (3xTF32 on the
+  tensor cores).
 * :func:`pinv_bwd` — the wrapper of K7 (``pinv_bwd_kernel``; it replaces
   ``_bwd_kernel``): replays K6, keeping each iterate, and runs the reverse
   of each Horner chain by hand; returns dx and one normaliser-gradient
   partial per matrix, dcp = −Σ(xᵀ ⊙ dz) / c².
+* :func:`pinv_layout` — the kernels' launch layout at size m, read from the
+  built library: one cluster of 8 CTAs per matrix, each kernel's shared
+  memory and its scratch.  The operands live in a global scratch of whole
+  matrices that the wrappers allocate per call (it stays in L2): K6's holds
+  five per matrix (two iterates, y, t3, mm), K7's eight working matrices
+  and every iterate z_0 … z_{iters−1}.
 * :func:`pinv_fwd_reference` and :func:`pinv_bwd_reference` — the plain
   versions, transcriptions of the two TPU kernel bodies.  The CPU tests
   hold them against JAX and ``chip_smoke.py`` holds the kernels against
@@ -22,19 +29,21 @@
   splitting the gradient evenly over ties as JAX's ``jax.vjp`` of
   ``_norm_scalar`` does.  Under ``torch.no_grad()`` K6 is the only launch.
 
-On a CUDA tensor each wrapper launches its kernel or raises; only a tensor
-on the CPU takes the plain version.  The callers gate the kernels as JAX
-does (square, m % 128 == 0, m ≤ 512): :func:`imp_torch.ops.attention.moore_penrose_pinv`.
+On a CUDA tensor each wrapper launches its kernel or raises (also when the
+card cannot schedule a cluster); only a tensor on the CPU takes the plain
+version.  The callers gate the kernels as JAX does (square, m % 128 == 0,
+m ≤ 512): :func:`imp_torch.ops.attention.moore_penrose_pinv`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
-#: the matrix sizes the kernels are built for (8 row bands of m / 8 rows)
+#: the matrix sizes the kernels are built for
 PINV_SIZES = (128, 256, 384, 512)
 
 
@@ -124,6 +133,46 @@ def _check_cuda(named, m: int, iters: int, name: str) -> None:
             raise ValueError(f"{n} must be 16-byte aligned (float4 loads)")
 
 
+def pinv_layout(m: int, iters: int = 6) -> dict:
+    """K6/K7's launch layout at size ``m``, as ``pinv.cu`` sets it:
+    ``cluster``, the CTAs of the one cluster per matrix (CTA r owns row band
+    r of every product), ``threads`` per CTA, and per kernel its dynamic
+    shared memory in bytes, its scratch in floats per matrix and the
+    clusters that fit on the current device at once.  Builds the kernels'
+    library at first use; needs a CUDA device."""
+    return _layout(m, iters, torch.cuda.current_device())
+
+
+def _ws(x: torch.Tensor, kernel: str, iters: int) -> torch.Tensor:
+    """The scratch of ``kernel`` for the g matrices of ``x``."""
+    g, m, _ = x.shape
+    floats = g * _layout(m, iters, x.device.index)[kernel]["ws_floats"]
+    return torch.empty((floats,), dtype=torch.float32, device=x.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(m: int, iters: int, device: int) -> dict:
+    from ..kernels import load
+
+    out = [ctypes.c_int() for _ in range(8)]
+    err = load("pinv_fwd").imp_pinv_layout(m, iters, *map(ctypes.byref, out))
+    if err:
+        raise ValueError(f"pinv has no layout for m = {m}, iters = {iters}: cudaError {err}")
+    cluster, threads, fwd_smem, bwd_smem, fwd_ws, bwd_ws, fwd_fit, bwd_fit = (v.value for v in out)
+    return {
+        "cluster": cluster, "threads": threads,
+        "pinv_fwd": {"smem_bytes": fwd_smem, "ws_floats": fwd_ws, "clusters_at_once": fwd_fit},
+        "pinv_bwd": {"smem_bytes": bwd_smem, "ws_floats": bwd_ws, "clusters_at_once": bwd_fit},
+    }
+
+
+def _raise_if(err: int, name: str, m: int) -> None:
+    if err:
+        raise RuntimeError(
+            f"{name} launch failed at m = {m}: cudaError {err} (9: no cluster of "
+            f"pinv_layout({m}) fits on this device)")
+
+
 def pinv_fwd(x: torch.Tensor, c: torch.Tensor, iters: int = 6) -> torch.Tensor:
     """z by K6 on CUDA, by the plain version on CPU."""
     _check(x, c, "pinv_fwd")
@@ -137,14 +186,13 @@ def pinv_fwd(x: torch.Tensor, c: torch.Tensor, iters: int = 6) -> torch.Tensor:
 
     z = torch.empty_like(x)
     if g:
-        ws = torch.empty((g, 4, m, m), dtype=torch.float32, device=x.device)
+        ws = _ws(x, "pinv_fwd", iters)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = load("pinv_fwd").imp_pinv_fwd_f32(
             x.data_ptr(), c.data_ptr(), z.data_ptr(), ws.data_ptr(), g, m, iters,
             ctypes.c_void_p(stream),
         )
-        if err:
-            raise RuntimeError(f"pinv_fwd launch failed: cudaError {err}")
+        _raise_if(err, "pinv_fwd", m)
         count_launch("pinv_fwd")
     return z
 
@@ -168,15 +216,13 @@ def pinv_bwd(
     dx = torch.empty_like(x)
     dcp = torch.empty((g,), dtype=torch.float32, device=x.device)
     if g:
-        part = torch.empty((g, 8), dtype=torch.float32, device=x.device)
-        ws = torch.empty((g, iters + 8, m, m), dtype=torch.float32, device=x.device)
+        ws = _ws(x, "pinv_bwd", iters)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = load("pinv_bwd").imp_pinv_bwd_f32(
             x.data_ptr(), c.data_ptr(), g_out.data_ptr(), dx.data_ptr(), dcp.data_ptr(),
-            part.data_ptr(), ws.data_ptr(), g, m, iters, ctypes.c_void_p(stream),
+            ws.data_ptr(), g, m, iters, ctypes.c_void_p(stream),
         )
-        if err:
-            raise RuntimeError(f"pinv_bwd launch failed: cudaError {err}")
+        _raise_if(err, "pinv_bwd", m)
         count_launch("pinv_bwd")
     return dx, dcp
 

@@ -316,17 +316,35 @@ def test_pinv_wrappers_are_the_plain_versions_on_cpu_and_reject_bad_input():
         pinv.pinv_bwd(x, c, g_out[:1])
 
 
+def _near_duplicate_rows(g, m, seed=17, device="cpu"):
+    """Softmax rows in pairs whose scores differ by 1e-3: x is close to rank
+    m / 2, far worse conditioned than :func:`_attn_like`."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    s = torch.randn(g, m, m, generator=gen, device=device)
+    s[:, 1::2] = s[:, 0::2] + 1e-3 * torch.randn(g, m // 2, m, generator=gen, device=device)
+    return torch.softmax(s, dim=-1)
+
+
+_PINV_INPUTS = {"attn_like": _attn_like, "near_duplicate_rows": _near_duplicate_rows}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("g,m", [(64, 128), (8, 256), (3, 384), (2, 512)])
-def test_pinv_kernels_match_plain_on_card(g, m):
+@pytest.mark.parametrize("g,m,inputs", [
+    (16, 128, "attn_like"), (64, 128, "attn_like"), (1, 256, "attn_like"),
+    (5, 256, "attn_like"), (8, 256, "attn_like"), (3, 384, "attn_like"), (2, 512, "attn_like"),
+    (16, 128, "near_duplicate_rows"), (8, 256, "near_duplicate_rows")])
+def test_pinv_kernels_match_plain_on_card(g, m, inputs):
     """K6 and K7 against their plain versions on the card (1e-4 relative to
     the largest reference value: fp32, other summation order; the backward
-    reaches ~1e3), and the autograd Function, through ``moore_penrose_pinv``
-    in the fused mode, against autograd through the chain."""
+    reaches ~1e3), a second launch of each against the first (bit for bit:
+    no atomics), and the autograd Function, through ``moore_penrose_pinv``
+    in the fused mode, against autograd through the chain.  (1, 256) is a
+    single cluster, (5, 256) an odd count of them;
+    ``near_duplicate_rows`` is the ill-conditioned input."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in true fp32
-    x = _attn_like(g, m, device="cuda")
+    x = _PINV_INPUTS[inputs](g, m, device="cuda")
     c = pinv.norm_scalar(x)
     g_out = torch.randn(g, m, m, generator=torch.Generator(device="cuda").manual_seed(3),
                         device="cuda")
@@ -340,6 +358,9 @@ def test_pinv_kernels_match_plain_on_card(g, m):
     dx_ref, dcp_ref = pinv.pinv_bwd_reference(x, c, g_out)
     for got, want in ((z, pinv.pinv_fwd_reference(x, c)), (dx, dx_ref), (dcp, dcp_ref)):
         assert torch.isfinite(got).all() and _rel(got, want) < 1e-4
+    assert torch.equal(pinv.pinv_fwd(x, c), z)
+    dx2, dcp2 = pinv.pinv_bwd(x, c, g_out)
+    assert torch.equal(dx2, dx) and torch.equal(dcp2, dcp)
     xg = x.clone().requires_grad_()
     before = kernels.launches()
     grad = torch.autograd.grad((moore_penrose_pinv(xg, 6, mode="fused") * g_out).sum(), xg)[0]
@@ -353,6 +374,33 @@ def test_pinv_kernels_match_plain_on_card(g, m):
         pinv.pinv_fwd(x.double(), c.double())
     with pytest.raises(ValueError, match="contiguous"):
         pinv.pinv_fwd(x.transpose(1, 2), c)
+
+
+@pytest.mark.gpu
+def test_pinv_fused_gradient_with_a_tied_normaliser_matches_the_chain_on_card():
+    """The normaliser's column-sum maximum ties exactly (two equal columns
+    in each of two equal matrices): the fused mode's gradient (K6/K7, and
+    torch's max outside them splitting dc over the ties) matches autograd
+    through the chain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = _attn_like(1, 128, device="cuda")
+    one[..., 0] += 0.5
+    one[..., 1] = one[..., 0]
+    x = torch.cat([one, one])
+    colsums = x.abs().sum(dim=-2)
+    assert int((colsums == colsums.max()).sum()) == 4
+    g_out = torch.randn(2, 128, 128, generator=torch.Generator(device="cuda").manual_seed(6),
+                        device="cuda")
+    xg = x.clone().requires_grad_()
+    before = kernels.launches()
+    grad = torch.autograd.grad((moore_penrose_pinv(xg, 6, mode="fused") * g_out).sum(), xg)[0]
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert after["pinv_fwd"] == before["pinv_fwd"] + 1
+    assert after["pinv_bwd"] == before["pinv_bwd"] + 1
+    assert torch.isfinite(grad).all() and _rel(grad, _chain_grad(x, g_out)) < 1e-4
 
 
 @pytest.mark.gpu
