@@ -71,6 +71,23 @@ Phases, each printing one JSON line (the run fails on the first error):
    at ``TPU.ATTENTION=auto`` (Nyström, 256 landmarks) with the fused mode
    through the CLI: K6 and K7 twice per train step, K6 twice per eval
    batch; one step fused against chain and the step time of both modes.
+11. ``train_classification`` — ``python -m imp_torch.tools.train --trainer
+   MBTRAIN --config-file configs/Classification/UMEML_GAN.yaml`` (bilinear
+   fusion, 6 classes, the flagship's widths, batch 2) on the same 16 slides
+   for 2 epochs (plain, then GAN, the CCA epoch between): K4/K5 once per
+   main step and never in the CCA epoch or the evaluations, the accuracy /
+   AUC / macro-F1 block, one importance row per test slide in
+   ``test_{path,omic}.txt``, a strict reload of the last checkpoint.
+12. ``train_step_tasks`` — one main step per task through the kernels
+   against the plain versions (loss and every gradient), then its step time
+   and device busy time: UMEML_GAN at Grading and at Subtyping (K4/K5),
+   TransMIL at Subtyping under flash (K1-K3), UMEML at Classification with
+   the fused pseudo-inverse (K6/K7 against the chain).
+13. ``test_new`` — a one-epoch ``train`` on configs/Grading/UMEML_GAN.yaml,
+   then ``python -m imp_torch.tools.test_new`` on a synthetic external
+   cohort of 12 slides, 4 of them without a molecular CSV: those are served
+   with ``without_omic = 1``, the accuracy is reported, and
+   ``test_new_{path,omic}.txt`` hold 12 rows each.
 ``train_step`` (phase 6) also times UMEML_GAN's batch-8 step with the fused
 mode.  The fused mode has no cfg key (JAX's ``PINV_MODE`` is a module
 global): the runs build their models fused with :func:`pinv_mode` around
@@ -242,14 +259,19 @@ def flagship_cfg(attention: str = "auto", **overrides):
     return _set(get_cfg_default(), {**FLAGSHIP, "TPU.ATTENTION": attention, **overrides})
 
 
-def transmil_cfg(**overrides):
-    """TransMIL.yaml under ``TPU.ATTENTION=flash`` (plus ``overrides``, which
-    may set another attention), frozen."""
+def yaml_cfg(path: str, **overrides):
+    """The config of the YAML file ``path`` (plus ``overrides``), frozen."""
     from imp_torch.config import get_cfg_default
 
     cfg = get_cfg_default()
-    cfg.merge_from_file(TRANSMIL_YAML)
-    return _set(cfg, {"TPU.ATTENTION": "flash", **overrides})
+    cfg.merge_from_file(path)
+    return _set(cfg, overrides)
+
+
+def transmil_cfg(**overrides):
+    """TransMIL.yaml under ``TPU.ATTENTION=flash`` (plus ``overrides``, which
+    may set another attention), frozen."""
+    return yaml_cfg(TRANSMIL_YAML, **{"TPU.ATTENTION": "flash", **overrides})
 
 
 def flagship_opts(**overrides) -> list:
@@ -1244,30 +1266,27 @@ def make_train_tree(root: str) -> str:
 
 @contextlib.contextmanager
 def seeded_bags():
-    """The port's SlideDataset with only its .h5 reader replaced: slide i's
-    bag is TRAIN_LENGTHS[i] patches of seeded normal features; the
-    molecular CSV is read by the port as usual."""
+    """The port's SlideDataset (and the external cohort's, which inherits
+    it) with only its .h5 reader replaced: slide i's bag is
+    TRAIN_LENGTHS[i] patches of seeded normal features; the molecular CSV is
+    read by the port as usual."""
     import warnings
 
-    import imp_torch.data.manager as manager
+    from imp_torch.data.manager import SlideDataset
 
-    base = manager.SlideDataset
+    def seeded_bag(self, idx):
+        i = int(self.data_source[idx].patientid.split("-")[1])
+        rng = np.random.default_rng(SEED + i)
+        return rng.standard_normal((TRAIN_LENGTHS[i], self.cfg.DATASET.PATH.DIM), dtype=np.float32)
 
-    class SeededBagDataset(base):
-        def _load_raw(self, idx):
-            item = self.data_source[idx]
-            i = int(item.patientid.split("-")[1])
-            rng = np.random.default_rng(SEED + i)
-            bag = rng.standard_normal((TRAIN_LENGTHS[i], self.cfg.DATASET.PATH.DIM), dtype=np.float32)
-            return bag, manager.read_molecular(item.molpath)
-
-    manager.SlideDataset = SeededBagDataset
+    reader = SlideDataset._load_bag
+    SlideDataset._load_bag = seeded_bag
     try:
         with warnings.catch_warnings():
             warnings.filterwarnings("ignore", message="No file found")  # no .h5 on disk
             yield
     finally:
-        manager.SlideDataset = base
+        SlideDataset._load_bag = reader
 
 
 @contextlib.contextmanager
@@ -1477,8 +1496,9 @@ def grads_check(loss_and_grads, plain, names):
     return check, counted
 
 
-def time_step(step, kernel_names):
-    """Median and p90 host ms of ``step()`` (synchronised, after warm-up),
+def time_step(step, kernel_names, timed: int = STEP_TIMED):
+    """Median and p90 host ms of ``timed`` calls of ``step()`` (synchronised,
+    after warm-up),
     the device busy ms per step, the device ms of ``kernel_names`` per
     step (together and by kernel), and the peak device memory."""
     import torch
@@ -1488,7 +1508,7 @@ def time_step(step, kernel_names):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(STEP_TIMED):
+    for _ in range(timed):
         t0 = time.perf_counter()
         metrics = step()
         torch.cuda.synchronize()
@@ -1505,7 +1525,7 @@ def time_step(step, kernel_names):
     median = float(np.median(times)) * 1e3
     return {
         "step_ms_median": median, "step_ms_p90": float(np.percentile(times, 90)) * 1e3,
-        "timed_steps": STEP_TIMED, "kernels_device_ms_per_step": named_ms(kernel_names),
+        "timed_steps": timed, "kernels_device_ms_per_step": named_ms(kernel_names),
         "kernels_timed": list(kernel_names),
         "by_kernel_device_ms_per_step": {k: named_ms((k,)) for k in kernel_names},
         "device_busy_ms_per_step": busy,
@@ -1886,6 +1906,333 @@ def phase_train_step_transmil(card: str, root: str, out: str, attention: str = "
     return row
 
 
+# ---------------------------------------------------------------------------
+# phases 11-13: Classification, Grading and Subtyping
+# ---------------------------------------------------------------------------
+
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+TASK_EPOCHS = 2  # plain, then GAN, the CCA epoch between them
+TASK_STEP_TIMED = 6
+#: the external cohort: TRAIN_LENGTHS' first 12 bags; these have no omics
+EXTERNAL_SLIDES = 12
+EXTERNAL_NO_OMICS = (1, 4, 7, 10)
+#: launch counter -> the kernels it counts, by their names in the trace
+TRACE_NAMES = {"flash_fwd": ("flash_fwd_kernel",),
+               **{k: (v,) for k, v in BWD_KERNEL_SYMBOL.items()},
+               **MOD_KERNEL_SYMBOLS,
+               **{k: (v,) for k, v in PINV_KERNEL_SYMBOL.items()}}
+
+
+def task_yaml(task: str, model: str) -> str:
+    return os.path.join(CONFIGS, task, f"{model}.yaml")
+
+
+def result_lines(log: str, *keys) -> dict:
+    """The ``* key: X%`` values of the log, per key."""
+    return {k: [float(line.split(":")[1].strip().rstrip("%")) for line in log.splitlines()
+                if line.startswith(f"* {k}:")] for k in keys}
+
+
+def importance_rows(path: str) -> list:
+    """The row widths of an importance dump, one per slide."""
+    with open(path) as f:
+        return [len(line.split()) for line in f if line.strip()]
+
+
+def phase_train_classification(card: str, root: str, out: str):
+    """MBTRAIN on configs/Classification/UMEML_GAN.yaml (bilinear fusion, 6
+    classes, the full widths) through the CLI for 2 epochs (plain, then GAN,
+    the CCA epoch between): K4/K5 once per main step and never in the CCA
+    epoch or the evaluations, the accuracy / AUC / macro-F1 block, one
+    importance row per test slide, a strict reload of the last checkpoint."""
+    import torch
+
+    from imp_torch.engine.mbtrain import MBTRAIN
+    from imp_torch.models import build_model
+    from imp_torch.serving import even_gene_groups
+
+    config = task_yaml("Classification", "UMEML_GAN")
+    argv = ["--root", root, "--seed", "1", "--trainer", "MBTRAIN", "--config-file", config,
+            "--output-dir", out, "--device", DEVICE, "OPTIM.MAX_EPOCH", str(TASK_EPOCHS),
+            "TRAIN.CURRICULUM.GAN_START_EPOCH", "1", "TRAIN.CURRICULUM.REPLACE_START_EPOCH",
+            str(TASK_EPOCHS)]
+    result, counts, record, seconds, log = run_trainer(
+        argv, MBTRAIN, ("train_step", "run_epoch_cca", "test"),
+        "chip_smoke_train_classification_log.txt")
+    steps = [r for r in record if r[0] == "train_step"]
+    others = [r for r in record if r[0] != "train_step"]
+    per_step_ok = all(only_launched(d) == {"modularity_deg": 1, "modularity_combined": 1}
+                      for _, d, _, _ in steps)
+    others_zero = all(not only_launched(d) for _, d, _, _ in others)
+    metrics = [{k: float(v) for k, v in m.items()} for _, _, _, m in steps]
+    finite = all(np.isfinite(list(m.values())).all() for m in metrics)
+    lines = result_lines(log, "accuracy", "AUC", "macro_f1")
+    cfg = yaml_cfg(config)
+    with open(os.path.join(root, "tcga_glioma", "labels", "classification",
+                           "classification_test_1.csv")) as f:
+        num_test = len(f.read().split()) - 1  # rows after the header
+    rows = {m: importance_rows(os.path.join(out, f"test_{m}.txt")) for m in ("path", "omic")}
+    model = build_model("umeml_gan", cfg=cfg, num_classes=6,
+                        gene_group_indexes=even_gene_groups(1000, 6), device=DEVICE)
+    ckpt_name, ckpt_epoch = reload_last(out, model)
+    head = {"fusion": model.fusion, "classes": model.classifier.out_features,
+            "outer_product_features": model.mm.encoder1.in_features,
+            "encoder1_width": model.mm.encoder1.out_features,
+            "bilinear_params": sum(p.numel() for p in model.mm.parameters())}
+    row = {
+        "phase": "train_classification", "card": card, "entry": "python -m imp_torch.tools.train",
+        "config": "configs/Classification/UMEML_GAN.yaml", "slides": len(TRAIN_LENGTHS),
+        "batch": int(cfg.DATALOADER.TRAIN.BATCH_SIZE), "bag_pad": int(cfg.DATASET.BAG_PAD),
+        "hidden": int(cfg.MODEL.HIDDEN_DIM), "genes": 1000, "epochs": TASK_EPOCHS, "head": head,
+        "main_steps": len(steps), "gan_steps": sum("loss_gen" in m for m in metrics),
+        "cca_epochs": sum(r[0] == "run_epoch_cca" for r in others),
+        "evaluations": sum(r[0] == "test" for r in others), "launches": counts,
+        "K4_K5_once_per_main_step": per_step_ok,
+        "launches_outside_main_steps": 0 if others_zero else [r[:2] for r in others],
+        "losses_finite": finite, "last_loss": metrics[-1] if metrics else None,
+        "result_lines": lines, "result_accuracy": result, "test_slides": num_test,
+        "importance_rows": {m: len(r) for m, r in rows.items()},
+        "checkpoint": ckpt_name, "checkpoint_epoch": ckpt_epoch, "seconds": seconds,
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    emit(row)
+    require(len(steps) > 0 and per_step_ok and others_zero, f"K4/K5 off the main steps: {row}")
+    require(counts["modularity_deg"] == counts["modularity_combined"] == len(steps), row)
+    require(finite and row["gan_steps"] > 0 and row["cca_epochs"] == TASK_EPOCHS - 1, row)
+    require(all(len(v) >= TASK_EPOCHS + 1 for v in lines.values()) and result is not None,
+            f"no accuracy / AUC / macro_f1 block: {lines}")
+    require(rows["path"] == rows["omic"] == [cfg.MODEL.UMEML.PROTOTYPES] * num_test,
+            f"importance rows per test slide: {rows}")
+    require(ckpt_epoch == TASK_EPOCHS and head["classes"] == 6 and head["fusion"] == "bilinear",
+            row)
+    return row, counts
+
+
+def trainer_for(config: str, root: str, out: str, trainer: str, **overrides):
+    """A trainer on ``config`` (plus ``overrides``) over the seeded bags."""
+    from imp_torch.engine import build_trainer
+
+    cfg = yaml_cfg(config, **{"DATASET.ROOT": root, "OUTPUT_DIR": out, "VERBOSE": False,
+                              "SEED": 1, "DATASET.FOLD": 1, "TRAINER.NAME": trainer, **overrides})
+    with seeded_bags():
+        return build_trainer(cfg, device=DEVICE)
+
+
+def phase_train_step_tasks(card: str, root: str, out: str):
+    """One main step per task through the kernels against the plain
+    versions (loss and every gradient, same dropout draws), then its step
+    time and device busy time: UMEML_GAN at Grading and Subtyping (K4/K5
+    against the plain modularity), TransMIL at Subtyping under flash (K1-K3
+    against the plain flash attention), UMEML at Classification with the
+    fused pseudo-inverse (K6/K7 against the chain; K4/K5 run in both)."""
+    import torch
+
+    cases = (
+        ("UMEML_GAN", "Grading", "MBTRAIN", {}, plain_modularity,
+         {"modularity_deg": 1, "modularity_combined": 1}),
+        ("UMEML_GAN", "Subtyping", "MBTRAIN", {}, plain_modularity,
+         {"modularity_deg": 1, "modularity_combined": 1}),
+        ("TransMIL", "Subtyping", "TransMIL", {"TPU.ATTENTION": "flash"}, plain_attention,
+         {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}),
+        ("UMEML", "Classification", "MBTRAIN", {}, chain_pinv,
+         {"pinv_fwd": 6, "pinv_bwd": 6, "modularity_deg": 1, "modularity_combined": 1}),
+    )
+    rows = []
+    for model_name, task, trainer_name, overrides, plain, launches in cases:
+        fused = model_name == "UMEML"
+        with pinv_mode("fused") if fused else contextlib.nullcontext():
+            trainer = trainer_for(task_yaml(task, model_name), root, out, trainer_name,
+                                  **overrides)
+        with seeded_bags():  # TransMIL: the fullest slide; MBTRAIN: the first batch
+            batch = (max((b for loader in (trainer.train_loader, trainer.test_loader)
+                          for b in loader), key=lambda b: int(b["img_mask"].sum()))
+                     if trainer_name == "TransMIL" else next(iter(trainer.train_loader)))
+        db = trainer._device_batch(batch)
+        model, g = trainer.model, trainer.generator
+        require(not fused or fused_pinvs(model) == 6, "UMEML has six Nyström TransLayers, fused")
+        state = g.get_state()
+        names = [n for n, _ in model.named_parameters() if not n.startswith("gan_discriminator")]
+
+        def loss_and_grads(model=model, db=db):
+            g.set_state(state)
+            params = [dict(model.named_parameters())[n] for n in names]
+            out_ = model(db, train=True, generator=g)
+            if trainer_name == "TransMIL":
+                loss, extra = trainer.task_loss(out_, db), {}
+            else:
+                loss = (trainer.task_loss(out_["logits"], db) + out_["modular_loss"]
+                        + out_.get("loss_kd", 0.0))
+                extra = {"modular_loss": out_["modular_loss"].detach()}
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if gr is None else gr for p, gr in zip(params, grads)]
+            return loss.detach(), extra, grads
+
+        check, counted = grads_check(loss_and_grads, plain, names)
+        require(only_launched(counted) == launches, f"{model_name} at {task}: {counted}")
+        if check["grad_rel"] > STEP_TOL:
+            check["float64"] = float64_check(loss_and_grads, model, db, plain, names)
+        require(check["loss_rel"] <= STEP_TOL
+                and (check["grad_rel"] <= STEP_TOL or check["float64"]["ok"])
+                and check.get("modular_loss_rel", 0.0) <= STEP_TOL,
+                f"{model_name} at {task} through the kernels vs the plain versions: {check}")
+
+        def step():
+            if trainer_name == "TransMIL":
+                return trainer.train_step(db)
+            return trainer.train_step(db, train_gan=model_name == "UMEML_GAN", replace_ratio=0.25)
+
+        timing = time_step(step, tuple(n for k in launches for n in TRACE_NAMES[k]),
+                           timed=TASK_STEP_TIMED)
+        b = len(batch["patient_id"])
+        head = model.mm if hasattr(model, "mm") else model.classifier
+        rows.append({
+            "model": model_name, "task": task, "config": f"configs/{task}/{model_name}.yaml",
+            "classes": int(model.classifier.out_features),
+            "fusion": getattr(model, "fusion", None),
+            "head_params": sum(p.numel() for p in head.parameters()),
+            "pinv_mode": "fused" if fused else None, "check": check,
+            "launches_per_step": only_launched(counted), "batch": b,
+            "bag_lengths": [int(x) for x in batch["img_mask"].sum(axis=1)], **timing,
+            "slides_per_s": b / (timing["step_ms_median"] / 1e3),
+        })
+        require(timing["loss_finite"], rows[-1])
+        del trainer, model, db
+        torch.cuda.empty_cache()
+    row = {"phase": "train_step_tasks", "card": card, "steps": rows}
+    emit(row)
+    return row
+
+
+def float64_check(loss_and_grads, model, db, plain, names) -> dict:
+    """For a step whose gradients miss the gate: the same step (same draws)
+    through the kernels and the plain versions in float32 and the plain
+    versions in float64.  A gradient passes when the kernels are within
+    STEP_TOL of the plain version or, where float32 cannot resolve it (the
+    plain float32 gradient is itself more than STEP_TOL off the float64
+    one), when the kernels are no further from the float64 gradient than
+    twice the plain float32 version."""
+    import copy
+
+    import torch
+
+    m64 = copy.deepcopy(model).double()
+    db64 = {k: v.double() if v.is_floating_point() else v for k, v in db.items()}
+    _, _, kern = loss_and_grads()
+    with plain():
+        _, _, flat = loss_and_grads()
+        _, _, exact = loss_and_grads(m64, db64)
+    rows, ok = {}, True
+    for n, k, p, x in zip(names, kern, flat, exact):
+        k_p, k_x, p_x = rel_err(k, p), rel_err(k.double(), x), rel_err(p.double(), x)
+        passed = k_p <= STEP_TOL or (p_x > STEP_TOL and k_x <= 2 * p_x)
+        ok &= passed
+        if k_p > STEP_TOL or p_x > STEP_TOL:
+            rows[n] = {"kernel_vs_plain": k_p, "kernel_vs_float64": k_x,
+                       "plain_vs_float64": p_x, "max_abs_grad": x.abs().max().item(),
+                       "passed": passed}
+    del m64, db64
+    torch.cuda.empty_cache()
+    return {"ok": ok, "params": rows}
+
+
+def make_external_tree(root: str) -> None:
+    """``<root>/test/``: the Grading labels of EXTERNAL_SLIDES patients
+    (their bags are TRAIN_LENGTHS' first ones, from :func:`seeded_bags`,
+    so each .h5 file is an empty stand-in that marks the slide as present),
+    and molecular CSVs for all but EXTERNAL_NO_OMICS."""
+    import csv
+
+    ext = os.path.join(root, "test")
+    for sub in ("labels/grading", "features_clip_vit_b16", "molecular"):
+        os.makedirs(os.path.join(ext, sub), exist_ok=True)
+    rng = np.random.default_rng(SEED + 100)
+    rows = []
+    for i in range(EXTERNAL_SLIDES):
+        pid = f"CPTAC-{i:04d}-01A"
+        open(os.path.join(ext, "features_clip_vit_b16", pid + ".h5"), "w").close()
+        if i not in EXTERNAL_NO_OMICS:
+            with open(os.path.join(ext, "molecular", pid + ".csv"), "w", newline="") as f:
+                w = csv.writer(f)
+                w.writerow(["gene_name", "fpkm_uq_unstranded"])
+                w.writerows([f"GENE{g}", repr(float(v))] for g, v in
+                            enumerate(rng.lognormal(1.0, 1.0, 1000).astype(np.float32)))
+        rows.append([pid, i % 3])
+    with open(os.path.join(ext, "labels", "grading", "grading_test.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["patients", "labels"])
+        w.writerows(rows)
+
+
+def phase_test_new(card: str, root: str, out: str):
+    """``python -m imp_torch.tools.test_new`` on the external cohort with the
+    checkpoint of a one-epoch ``train`` on configs/Grading/UMEML_GAN.yaml:
+    the slides without omics are served with ``without_omic = 1``, the
+    accuracy is reported, one importance row per slide, no K4/K5 launch."""
+    import io
+
+    import torch
+
+    from imp_torch import kernels
+    from imp_torch.engine.mbtrain import MBTRAIN
+    from imp_torch.tools.test_new import run as run_test_new
+
+    config = task_yaml("Grading", "UMEML_GAN")
+    train_out, ext_out = os.path.join(out, "train"), os.path.join(out, "test_new")
+    common = ["--root", root, "--seed", "1", "--trainer", "MBTRAIN", "--config-file", config,
+              "--device", DEVICE]
+    _, train_counts, steps, train_seconds, _ = run_trainer(
+        common + ["--output-dir", train_out, "OPTIM.MAX_EPOCH", "1"], MBTRAIN, ("train_step",),
+        "chip_smoke_train_grading_log.txt")
+    make_external_tree(root)
+
+    served = []
+    eval_batch = MBTRAIN._eval_batch
+
+    def keep_flags(self, batch, split, batch_index):
+        db = eval_batch(self, batch, split, batch_index)
+        served.extend(zip(batch["patient_id"], db["without_omic"].tolist()))
+        return db
+
+    console = io.StringIO()
+    MBTRAIN._eval_batch = keep_flags
+    try:
+        with seeded_bags(), contextlib.redirect_stdout(console):
+            # ---- the main path: counts at 0 just before, read just after ------
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            result = run_test_new(common + ["--model-dir", train_out, "--output-dir", ext_out])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = kernels.launches()
+    finally:
+        MBTRAIN._eval_batch = eval_batch
+    with open(os.path.join(ext_out, "log.txt")) as f:
+        log = f.read()
+    with open(os.path.join(LOG_DIR, "chip_smoke_test_new_log.txt"), "w") as f:
+        f.write(log)
+    rows = {m: importance_rows(os.path.join(ext_out, f"test_new_{m}.txt")) for m in ("path", "omic")}
+    without = sorted(int(pid.split("-")[1]) for pid, w in served if w == 1.0)
+    row = {
+        "phase": "test_new", "card": card, "entry": "python -m imp_torch.tools.test_new",
+        "config": "configs/Grading/UMEML_GAN.yaml", "train_steps": len(steps),
+        "train_launches": train_counts, "train_seconds": train_seconds,
+        "external_slides": EXTERNAL_SLIDES, "served": len(served),
+        "served_without_omic": without, "launches": counts,
+        "result_lines": result_lines(log, "accuracy", "AUC", "macro_f1"),
+        "result_accuracy": result, "importance_rows": {m: len(r) for m, r in rows.items()},
+        "seconds": seconds,
+    }
+    emit(row)
+    require(len(served) == EXTERNAL_SLIDES and without == list(EXTERNAL_NO_OMICS),
+            f"slides without omics not served through the generator: {row}")
+    require(not only_launched(counts), f"kernels launched in the external evaluation: {row}")
+    require(result is not None and np.isfinite(result)
+            and "Evaluate on the *external test* set (12 samples)" in log
+            and len(row["result_lines"]["accuracy"]) == 1, f"no accuracy reported: {row}")
+    require(rows["path"] == rows["omic"] == [6] * EXTERNAL_SLIDES, f"importance rows: {rows}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -1925,6 +2272,9 @@ def main() -> int:
                                   attention="auto")
         phase_train(card, root, os.path.join(tmp, "train_flash"), attention="flash")
         phase_train_step(card, root, os.path.join(tmp, "train_step_flash"), attention="flash")
+        phase_train_classification(card, root, os.path.join(tmp, "classification"))
+        phase_train_step_tasks(card, root, os.path.join(tmp, "task_steps"))
+        phase_test_new(card, root, os.path.join(tmp, "test_new"))
 
     def per_forward(key):
         return sum(krows[s][key] * n for s, n in FLASH_PER_FORWARD.items())

@@ -11,6 +11,8 @@ and return the port's ``state_dict``:
 * ``LayerNorm`` ``scale`` becomes ``weight``; flax's auto-named
   ``LayerNorm_0`` inside a TransLayer is the port's ``norm``;
 * list members ``name_i`` become ``name.i`` (``nn.ModuleList``);
+* a tree with ``mm/encoder1`` is a model with bilinear fusion, whose
+  ``mm/linear_*`` and ``mm/encoder*`` become ``mm.*`` by the rules above;
 * UMEML_GAN's ``GroupedLinear`` (``omic_net``), the packed MHA ``in_proj_weight``
   (``[e, 3e]`` in both), ``res_conv``, ``p_proto``, the encoder tokens and
   ``bottle_tokens`` carry over as they are, and so do TransMIL's
@@ -65,11 +67,16 @@ def _shape(flat: Dict[str, np.ndarray], key: str):
     return np.shape(flat[key])
 
 
+def _fusion(flat: Dict[str, np.ndarray]) -> str:
+    return "bilinear" if "params/mm/encoder1/kernel" in flat else "concat"
+
+
 def _expected(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Size]:
     """Key -> shape of the port's UMEML_GAN at the widths ``flat`` implies
     (hidden and prototypes from ``p_proto``, registers from
     ``bottle_tokens``, classes from ``classifier``, feature width from
-    ``path_net``, widest gene group from ``omic_net``)."""
+    ``path_net``, widest gene group from ``omic_net``, the fusion from
+    ``mm``)."""
     from .models.umeml_gan import UMEML_GAN
 
     def shape(key):
@@ -85,6 +92,7 @@ def _expected(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Size]:
             hidden=hidden,
             n_proto=n_proto,
             n_reg=shape("params/bottleattn/bottle_tokens")[1],
+            fusion=_fusion(flat),
         )
     return {k: v.shape for k, v in model.state_dict().items()}
 
@@ -119,6 +127,7 @@ def _umeml_expected(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Size]:
             hidden=hidden,
             n_proto=n_proto,
             n_reg=_shape(flat, "params/bottleattn/bottle_tokens")[1],
+            fusion=_fusion(flat),
         )
     return {k: v.shape for k, v in model.state_dict().items()}
 

@@ -7,7 +7,7 @@ signatures.csv + one molecular CSV; an LRU host cache plus a prefetch
 thread overlap bag IO with the card; shuffling is seeded by seed + epoch.
 
 CSVs are read with the standard library's ``csv``; ``h5py`` is imported only
-by the bag reader (:meth:`SlideDataset._load_raw`), so a host without it can
+by the bag reader (:meth:`SlideDataset._load_bag`), so a host without it can
 run everything else (and substitute its own bag reader).
 """
 
@@ -85,13 +85,15 @@ class SlideDataset:
     def __len__(self):
         return len(self.data_source)
 
-    def _load_raw(self, idx: int):
+    def _load_bag(self, idx: int) -> np.ndarray:
+        """Slide ``idx``'s patch features [n, d] from its .h5 file."""
         import h5py
 
-        item = self.data_source[idx]
-        with h5py.File(item.impath, "r") as f:
-            bag = np.asarray(f[self.h5_key][:], dtype=np.float32)
-        return bag, read_molecular(item.molpath)
+        with h5py.File(self.data_source[idx].impath, "r") as f:
+            return np.asarray(f[self.h5_key][:], dtype=np.float32)
+
+    def _load_raw(self, idx: int):
+        return self._load_bag(idx), read_molecular(self.data_source[idx].molpath)
 
     @staticmethod
     def _nbytes(sample: Dict) -> int:

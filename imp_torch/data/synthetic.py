@@ -10,7 +10,7 @@ shifts the bag features and the survival bin sets survival months.
 
 CSVs go through the standard library's ``csv``; ``h5py`` is imported only
 to write the bags, and ``bags=False`` skips them (a host without h5py then
-reads bags with its own ``SlideDataset._load_raw``).
+reads bags with its own ``SlideDataset._load_bag``).
 """
 
 from __future__ import annotations

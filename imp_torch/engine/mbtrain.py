@@ -36,14 +36,24 @@ The models' TransLayers take ``pinv_mode`` (the Nyström pseudo-inverse as
 the chain of products or through K6/K7), which has no cfg key: the trainer
 builds them with its default, ``"chain"``, as JAX does.
 
-Not ported here (ROADMAP.md §A): ``umeml_gan_plot``, ``DATASET.USE_BSM``,
-``TRAINER.PREC`` other than fp32 and ``MODEL.INIT_WEIGHTS`` raise;
-``test_new`` (CPTAC) and the importance ``.txt`` dumps and PNG plots are
-absent.  ``TPU.REMAT``/``TPU.DONATE`` need no counterpart.
+Every evaluation (:meth:`MBTRAIN.test` on val or test, :meth:`test_new` on
+the external cohort) writes UMEML_GAN's per-prototype importances, one row
+per slide, to ``<OUTPUT_DIR>/<split>_{path,omic}.txt``, and each training
+epoch writes the train steps' rows to ``train_{path,omic}.txt``, as the JAX
+trainer does.  :meth:`test_new` evaluates on ``<DATASET.ROOT>/test/``
+(``data/external.py``), where a slide without a molecular CSV is served with
+``without_omic = 1`` and its omics come from the generator.
+
+Not ported here (ROADMAP.md §A item 4): ``umeml_gan_plot`` and the PNG plots
+of the importances (they need matplotlib, which the card's host lacks),
+``DATASET.USE_BSM``, ``TRAINER.PREC`` other than fp32 and
+``MODEL.INIT_WEIGHTS`` raise.  ``TPU.REMAT``/``TPU.DONATE`` need no
+counterpart.
 """
 
 from __future__ import annotations
 
+import os.path as osp
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -78,13 +88,14 @@ class MBTRAIN(TrainerBase):
     def check_cfg(self, cfg):
         assert cfg.MODEL.NAME in ("umeml", "umeml_gan", "umeml_gan_plot")
         if cfg.MODEL.NAME == "umeml_gan_plot":
-            raise deferred(f"MODEL.NAME={cfg.MODEL.NAME!r} under MBTRAIN")
+            raise deferred(f"MODEL.NAME={cfg.MODEL.NAME!r} under MBTRAIN (its PNG plots "
+                           "need matplotlib, which the card's host lacks)", 4)
         if cfg.DATASET.USE_BSM:
-            raise deferred("DATASET.USE_BSM (the chunk-averaged estimator)")
+            raise deferred("DATASET.USE_BSM (the chunk-averaged estimator)", 4)
         if cfg.TRAINER.PREC != "fp32":
-            raise deferred(f"TRAINER.PREC={cfg.TRAINER.PREC!r}")
+            raise deferred(f"TRAINER.PREC={cfg.TRAINER.PREC!r}", 4)
         if cfg.MODEL.INIT_WEIGHTS:
-            raise deferred("MODEL.INIT_WEIGHTS")
+            raise deferred("MODEL.INIT_WEIGHTS", 4)
 
     # ------------------------------------------------------------------ #
     # model and optimizers                                                 #
@@ -101,6 +112,7 @@ class MBTRAIN(TrainerBase):
             **genes,
         )
         self.omic_means = self.dm.compute_omic_means()
+        self._train_importance = None  # a list of the steps' importances during run_epoch
         print(f"# params: {count_num_param(self.model):,}")
         updates_per_epoch = max(1, len(self.train_loader))
         if not self.is_gan:
@@ -181,6 +193,9 @@ class MBTRAIN(TrainerBase):
         loss = self.task_loss(out["logits"], db) + out["modular_loss"] + out["loss_kd"]
         self._step(self.main_opt, loss)
         metrics["loss"] = loss.detach()
+        if self._train_importance is not None:  # inside run_epoch
+            self._train_importance.append((out["importance_path"].detach(),
+                                           out["importance_omic"].detach()))
         return metrics
 
     # ------------------------------------------------------------------ #
@@ -207,6 +222,16 @@ class MBTRAIN(TrainerBase):
                 self.run_epoch_cca()
             self.after_epoch()
         return self.after_train()
+
+    def run_epoch(self, **step_kwargs):
+        """One training epoch; the importances of its steps go to
+        ``train_{path,omic}.txt``, read back once, after the epoch."""
+        self._open_imp_files("train")
+        self._train_importance = []
+        super().run_epoch(**step_kwargs)
+        for imp_path, imp_omic in self._train_importance:
+            self._dump_importance(imp_path.cpu().numpy(), imp_omic.cpu().numpy())
+        self._train_importance = None
 
     def _log_extras(self, train_gan: bool, replace_ratio: float):
         return [f"gan={train_gan}", f"rr={replace_ratio:.3f}"]
@@ -291,28 +316,75 @@ class MBTRAIN(TrainerBase):
             without_ratio = umeml_gan_test_without_omic_ratio
         if umeml_gan_test_insample_without_omic_ratio is not None:
             insample_ratio = umeml_gan_test_insample_without_omic_ratio
-        without_ratio = max(float(without_ratio), 0.0)
-        insample_ratio = max(float(insample_ratio), 0.0)
-
         split, loader = self._eval_split(split)
-        # sample-level omics removal, seed 42 (ref mbtrain.py:303-310)
+        self._set_ablation(loader, without_ratio, insample_ratio)
+        self._open_imp_files(split)
+        print(f"Evaluate on the *{split}* set")
+        return self._evaluate(split, loader)
+
+    def test_new(self, cfg=None, split: str = "test",
+                 umeml_gan_test_without_omic_ratio: float = 0,
+                 umeml_gan_test_insample_without_omic_ratio: float = 0, **kwargs) -> float:
+        """External-cohort (CPTAC) evaluation (reference ``mbtrain.py:379-489``
+        and ``dataset_new.py``) on ``<DATASET.ROOT>/test/``: the ablation of
+        :meth:`test`, and every slide without omics served through the
+        generator; returns the first metric, written under ``test_new``."""
+        from ..data.external import build_test_new
+
+        _, loader = build_test_new(self.cfg, omic_dim=self.dm.omic_dim)
+        self._set_ablation(loader, umeml_gan_test_without_omic_ratio,
+                           umeml_gan_test_insample_without_omic_ratio)
+        self._open_imp_files("test_new")
+        print(f"Evaluate on the *external test* set ({len(loader.dataset)} samples)")
+        return self._evaluate("test_new", loader)
+
+    def _set_ablation(self, loader, without_ratio: float, insample_ratio: float) -> None:
+        """Sample-level omics removal drawn with seed 42 (ref
+        ``mbtrain.py:303-310``) and the in-sample deletion ratio for the
+        evaluation over ``loader``."""
         num_samples = len(loader.dataset)
+        without_ratio = max(float(without_ratio), 0.0)
         self._ablation = {
             "without": np.random.RandomState(42).choice(
                 num_samples, int(num_samples * without_ratio), replace=False),
-            "insample_ratio": insample_ratio,
+            "insample_ratio": max(float(insample_ratio), 0.0),
             "start": 0,  # the first sample of the next batch
         }
-        return super().test(split)
 
     def _eval_batch(self, batch: Dict, split: str, batch_index: int) -> Dict:
         ab = self._ablation
         b = batch["img"].shape[0]
         without = np.isin(np.arange(ab["start"], ab["start"] + b), ab["without"]).astype(np.float32)
+        if "without_omic" in batch:  # external slides with no omics always use the generator
+            without = np.maximum(without, batch["without_omic"])
         ab["start"] += b
         seed = (10000 if split == "val" else 20000) + batch_index
         insample = get_omic_delete_mask(b, batch["mol"].shape[1], ab["insample_ratio"], seed=seed)
         return self._device_batch(batch, without_omic=without, insample_mask=insample)
+
+    def _eval_output(self, out: Dict[str, torch.Tensor], batch: Dict) -> None:
+        if "importance_path" in out:
+            self._dump_importance(out["importance_path"].cpu().numpy(),
+                                  out["importance_omic"].cpu().numpy())
+
+    # ------------------------------------------------------------------ #
+    # interpretability dumps                                               #
+    # ------------------------------------------------------------------ #
+    def _open_imp_files(self, prefix: str) -> None:
+        """Truncate the importance dumps ``<prefix>_{path,omic}.txt`` (ref
+        ``trainer.py:617-618``) and make them the current ones."""
+        self._imp_files = {}
+        for mod in ("path", "omic"):
+            fp = osp.join(self.output_dir, f"{prefix}_{mod}.txt")
+            open(fp, "w").close()
+            self._imp_files[mod] = fp
+
+    def _dump_importance(self, imp_path: np.ndarray, imp_omic: np.ndarray) -> None:
+        """Append one line per slide: its prototypes' importances."""
+        for mod, arr in (("path", imp_path), ("omic", imp_omic)):
+            with open(self._imp_files[mod], "a") as f:
+                for row in arr:
+                    f.write(" ".join(str(float(x)) for x in row) + "\n")
 
     # ------------------------------------------------------------------ #
     # state                                                                #

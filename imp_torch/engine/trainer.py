@@ -7,7 +7,9 @@ selection, best/last checkpoints and the ``* metric: X%`` log lines
 Two trainers stand on :class:`TrainerBase`: MBTRAIN (``engine/mbtrain.py``,
 UMEML_GAN with its own curriculum loop) and :class:`StandardTrainer`, the
 one-optimizer loop of the MIL baselines (``engine/baselines.py``: ABMIL,
-TransMIL).  Both are survival trainers.
+TransMIL).  Both run the four tasks: Survival (C-index, from a survival
+head of 4 bins) and Classification, Grading and Subtyping (cross-entropy;
+accuracy, AUC and macro-F1 from ``evaluation/evaluators.py``).
 
 One process drives one device (``cuda`` unless the caller passes
 ``device="cpu"``); the JAX package's mesh, sequence parallelism and device
@@ -90,10 +92,10 @@ def make_task_loss(cfg) -> Callable:
     raise ValueError(f"Unknown TASK.LOSS: {name}")
 
 
-def deferred(what: str, item: str = "") -> NotImplementedError:
+def deferred(what: str, item: int) -> NotImplementedError:
     """The error of an option the port does not have yet, naming its
     ROADMAP.md item."""
-    return NotImplementedError(f"{what}: not ported yet, see ROADMAP.md §A{item}")
+    return NotImplementedError(f"{what}: not ported yet, see ROADMAP.md §A item {item}")
 
 
 class TrainerBase:
@@ -117,16 +119,20 @@ class TrainerBase:
         if cfg.VERBOSE:
             self.dm.show_summary()
 
-        # survival baseline for IPCW (ref trainer.py:383-399)
-        tr_t, tr_c = self.dm.train_set.get_event_and_censorship()
-        if self.dm.val_set is not None:
-            va_t, va_c = self.dm.val_set.get_event_and_censorship()
+        if cfg.TASK.NAME == "Survival":
+            # survival baseline for IPCW (ref trainer.py:383-399)
+            tr_t, tr_c = self.dm.train_set.get_event_and_censorship()
+            if self.dm.val_set is not None:
+                va_t, va_c = self.dm.val_set.get_event_and_censorship()
+            else:
+                va_t, va_c = np.empty(0), np.empty(0)
+            all_c = np.concatenate([tr_c, va_c], axis=0)
+            all_t = np.concatenate([tr_t, va_t], axis=0)
+            self.all_survival = ((1 - all_c).astype(bool), all_t)
+            self.evaluator = build_evaluator(cfg, all_survival=self.all_survival, bins=None)
         else:
-            va_t, va_c = np.empty(0), np.empty(0)
-        all_c = np.concatenate([tr_c, va_c], axis=0)
-        all_t = np.concatenate([tr_t, va_t], axis=0)
-        self.all_survival = ((1 - all_c).astype(bool), all_t)
-        self.evaluator = build_evaluator(cfg, all_survival=self.all_survival, bins=None)
+            self.all_survival = None
+            self.evaluator = build_evaluator(cfg, lab2cname=self.lab2cname)
 
         self.generator = torch.Generator(device=self.device).manual_seed(max(cfg.SEED, 0))
         self.best_result = -np.inf
@@ -220,19 +226,29 @@ class TrainerBase:
     def _eval_batch(self, batch: Dict, split: str, batch_index: int) -> Dict[str, torch.Tensor]:
         return self._device_batch(batch)
 
+    def _eval_output(self, out: Dict[str, torch.Tensor], batch: Dict) -> None:
+        """What a subclass keeps of one eval batch's model outputs besides
+        the logits (called in batch order, after the loop)."""
+
     def test(self, split: Optional[str] = None, **kwargs) -> float:
-        """Evaluate on ``split``; returns the evaluator's first metric.  The
-        logits are read back once, after the loop."""
-        self.evaluator.reset()
+        """Evaluate on ``split``; returns the evaluator's first metric."""
         split, loader = self._eval_split(split)
         print(f"Evaluate on the *{split}* set")
+        return self._evaluate(split, loader)
+
+    def _evaluate(self, split: str, loader) -> float:
+        """The eval forward over ``loader`` into the evaluator, its results
+        written under ``split``; returns the first metric.  The outputs are
+        read back once, after the loop."""
+        self.evaluator.reset()
         pending = []
         with torch.no_grad():
             for batch_index, batch in enumerate(loader):
                 out = self.model(self._eval_batch(batch, split, batch_index), train=False)
-                pending.append((out["logits"] if isinstance(out, dict) else out, batch))
-        for logits, batch in pending:
-            self.process_eval_batch(logits.cpu().numpy(), batch)
+                pending.append((out if isinstance(out, dict) else {"logits": out}, batch))
+        for out, batch in pending:
+            self._eval_output(out, batch)
+            self.process_eval_batch(out["logits"].cpu().numpy(), batch)
         results = self.evaluator.evaluate()
         for k, v in results.items():
             if self.writer:
@@ -285,7 +301,9 @@ class TrainerBase:
         return result
 
     def process_eval_batch(self, logits: np.ndarray, batch: Dict) -> None:
-        if type(self.evaluator).__name__ == "Survival_UMEML":
+        if self.cfg.TASK.NAME != "Survival":
+            self.evaluator.process(logits, batch["label"])
+        elif type(self.evaluator).__name__ == "Survival_UMEML":
             self.evaluator.process(batch["patient_id"], logits, batch["censorship"],
                                    batch["survival_month"])
         else:  # the baselines' Survival evaluator takes the survival curve
@@ -323,23 +341,21 @@ class StandardTrainer(TrainerBase):
         raise NotImplementedError
 
     def check_cfg(self, cfg):
-        if cfg.TASK.NAME != "Survival":
-            raise deferred(f"TASK.NAME={cfg.TASK.NAME!r} (the classification evaluators)", "6")
         if cfg.OPTIM.GRAD_ACCUM > 1:
-            raise deferred("OPTIM.GRAD_ACCUM > 1", "6")
+            raise deferred("OPTIM.GRAD_ACCUM > 1", 6)
         if cfg.MODEL.INIT_WEIGHTS:
-            raise deferred("MODEL.INIT_WEIGHTS")
+            raise deferred("MODEL.INIT_WEIGHTS", 4)
         if cfg.TRAINER.PREC != "fp32":
-            raise deferred(f"TRAINER.PREC={cfg.TRAINER.PREC!r}")
+            raise deferred(f"TRAINER.PREC={cfg.TRAINER.PREC!r}", 4)
         if "seq" in cfg.TPU.MESH_AXES:
-            raise deferred("sequence parallelism (TPU.MESH_AXES with 'seq')", "8")
+            raise deferred("sequence parallelism (TPU.MESH_AXES with 'seq')", 8)
 
     def build_model(self):
         self.model = self.build_network()
         # the JAX trainer's param_labels (frozen subtrees) and mutable
         # collections (BatchNorm statistics) belong to nets of item 6
         if any(isinstance(m, nn.modules.batchnorm._BatchNorm) for m in self.model.modules()):
-            raise deferred("nets with mutable state (batch statistics)", "6")
+            raise deferred("nets with mutable state (batch statistics)", 6)
         print(f"# params: {count_num_param(self.model):,}")
         self.optimizer = build_optimizer(self.cfg.OPTIM, list(self.model.parameters()),
                                          max(1, len(self.train_loader)))

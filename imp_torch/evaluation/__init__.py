@@ -1,4 +1,12 @@
-from .evaluators import EVALUATOR_REGISTRY, Survival_UMEML, build_evaluator
+from .accuracy import compute_accuracy, compute_distance_matrix
+from .evaluators import (
+    EVALUATOR_REGISTRY,
+    Classification,
+    Classification_UMEML,
+    Survival_UMEML,
+    auc_com,
+    build_evaluator,
+)
 from .survival_metrics import (
     NoComparablePairError,
     censoring_survival_function,
@@ -8,8 +16,13 @@ from .survival_metrics import (
 
 __all__ = [
     "EVALUATOR_REGISTRY",
+    "Classification",
+    "Classification_UMEML",
     "Survival_UMEML",
+    "auc_com",
     "build_evaluator",
+    "compute_accuracy",
+    "compute_distance_matrix",
     "NoComparablePairError",
     "censoring_survival_function",
     "concordance_index_censored",

@@ -23,6 +23,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..ops.attention import ATTENTION_IMPLS, TransLayer, dropout, train_generator
+from ..ops.blocks import BilinearFusion
 from ..ops.modularity import compute_modularity_pair
 from .layers import Block, BottleneckAttentionBlock, PathProtoGenerator, proto_init_
 
@@ -44,11 +45,7 @@ class UMEML(nn.Module):
         super().__init__()
         if attention not in ATTENTION_IMPLS:
             raise ValueError(f"attention {attention!r} not in {ATTENTION_IMPLS}")
-        if fusion == "bilinear":
-            raise NotImplementedError(
-                "bilinear fusion (ops/blocks.py::BilinearFusion) not ported yet: see "
-                "ROADMAP.md §A (the rest of the UMEML_GAN options)")
-        if fusion != "concat":
+        if fusion not in ("concat", "bilinear"):
             raise ValueError(f"Unknown fusion: {fusion}")
         self.num_classes, self.hidden, self.n_proto = num_classes, hidden, n_proto
         self.dropout_rate, self.attention = dropout_rate, attention
@@ -67,8 +64,13 @@ class UMEML(nn.Module):
         self.p_proto = nn.Parameter(torch.empty(1, n_proto, hidden))
         self.o_encoder_token = nn.Parameter(torch.empty(1, 1, hidden))
         self.p_encoder_token = nn.Parameter(torch.empty(1, 1, hidden))
-        self.mm_fc1 = nn.Linear(2 * hidden, hidden)
-        self.mm_fc2 = nn.Linear(hidden, hidden)
+        self.fusion = fusion
+        if fusion == "bilinear":
+            self.mm = BilinearFusion(dim1=hidden, dim2=hidden, scale_dim1=8, scale_dim2=8,
+                                     mmhid=hidden)
+        else:
+            self.mm_fc1 = nn.Linear(2 * hidden, hidden)
+            self.mm_fc2 = nn.Linear(hidden, hidden)
         self.classifier = nn.Linear(hidden, num_classes)
 
     @torch.no_grad()
@@ -113,6 +115,9 @@ class UMEML(nn.Module):
         else:
             modular_loss = torch.zeros((), device=x_path.device)
 
-        z = torch.cat([t_path[:, 0], t_omic[:, 0]], dim=1)
-        hfused = F.relu(self.mm_fc2(F.relu(self.mm_fc1(z))))
+        if self.fusion == "bilinear":
+            hfused = self.mm(t_path[:, 0], t_omic[:, 0], generator=g)
+        else:
+            z = torch.cat([t_path[:, 0], t_omic[:, 0]], dim=1)
+            hfused = F.relu(self.mm_fc2(F.relu(self.mm_fc1(z))))
         return {"logits": self.classifier(hfused), "modular_loss": modular_loss}

@@ -11,15 +11,19 @@ generator and discriminator parameters.  ``finish(train=True)`` adds the
 modularity loss through :func:`imp_torch.ops.modularity.compute_modularity_pair`
 (kernels K4 and K5 on the card).
 
+``fusion`` is ``"concat"`` (two Linear layers over the concatenated
+tokens, the Survival configs) or ``"bilinear"`` (:class:`BilinearFusion`
+with dim 256 / 8 per side, the other tasks' configs), as in JAX.
+
 The JAX package's module globals are constructor arguments here, validated
 where they are used.  Only their defaults are ported: ``head_fused=True``
 (the head's two bottleneck passes as one 2B-row call), ``stacked_pairs=False``
 (twin decoder modules) and ``bag_dtype=None`` (all-fp32 bag activations);
-the others, and bilinear fusion, raise ``NotImplementedError`` naming their
-ROADMAP item.  ``attention`` replaces the process-global ``TPU.ATTENTION``
-default, and ``pinv_mode`` the JAX module global ``PINV_MODE`` (``"chain"``,
-the default, or ``"fused"``: the Nyström pseudo-inverse through the kernels
-K6/K7, see :func:`imp_torch.ops.attention.moore_penrose_pinv`).
+the others raise ``NotImplementedError`` naming their ROADMAP item.
+``attention`` replaces the process-global ``TPU.ATTENTION`` default, and
+``pinv_mode`` the JAX module global ``PINV_MODE`` (``"chain"``, the default,
+or ``"fused"``: the Nyström pseudo-inverse through the kernels K6/K7, see
+:func:`imp_torch.ops.attention.moore_penrose_pinv`).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from ..ops.attention import (
     init_parameters_,
     train_generator,
 )
+from ..ops.blocks import BilinearFusion
 from ..ops.modularity import compute_modularity_pair
 from .layers import (
     Block,
@@ -51,7 +56,7 @@ from .layers import (
     transform_importance_to_half_one_point_five,
 )
 
-_DEFERRED = "not ported yet: see ROADMAP.md §A (the rest of the UMEML_GAN options)"
+_DEFERRED = "not ported yet: see ROADMAP.md §A item 4 (the rest of the UMEML family)"
 
 
 def _bce_with_logits_vs_ones(z: torch.Tensor) -> torch.Tensor:
@@ -95,9 +100,7 @@ class UMEML_GAN(nn.Module):
             )
         if attention not in ATTENTION_IMPLS:
             raise ValueError(f"attention {attention!r} not in {ATTENTION_IMPLS}")
-        if fusion == "bilinear":
-            raise NotImplementedError(f"bilinear fusion (ops/blocks.py::BilinearFusion) {_DEFERRED}")
-        if fusion != "concat":
+        if fusion not in ("concat", "bilinear"):
             raise ValueError(f"Unknown fusion: {fusion}")
         if not head_fused:
             raise NotImplementedError(f"head_fused=False (two sequential head passes) {_DEFERRED}")
@@ -131,8 +134,13 @@ class UMEML_GAN(nn.Module):
         self.p_proto = nn.Parameter(torch.empty(1, n_proto, hidden))
         self.p_encoder_token = nn.Parameter(torch.empty(1, 1, hidden))
         self.o_encoder_token = nn.Parameter(torch.empty(1, 1, hidden))
-        self.mm_fc1 = nn.Linear(2 * hidden, hidden)
-        self.mm_fc2 = nn.Linear(hidden, hidden)
+        self.fusion = fusion
+        if fusion == "bilinear":
+            self.mm = BilinearFusion(dim1=hidden, dim2=hidden, scale_dim1=8, scale_dim2=8,
+                                     mmhid=hidden)
+        else:
+            self.mm_fc1 = nn.Linear(2 * hidden, hidden)
+            self.mm_fc2 = nn.Linear(hidden, hidden)
         self.classifier = nn.Linear(hidden, num_classes)
         self.explainer_path = nn.Linear(hidden, num_classes, bias=False)
         self.explainer_omic = nn.Linear(hidden, num_classes, bias=False)
@@ -243,7 +251,10 @@ class UMEML_GAN(nn.Module):
     # ------------------------------------------------------------------ #
     # bottleneck + fusion + explainer head                                 #
     # ------------------------------------------------------------------ #
-    def _fuse(self, t_path: torch.Tensor, t_omic: torch.Tensor) -> torch.Tensor:
+    def _fuse(self, t_path: torch.Tensor, t_omic: torch.Tensor,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+        if self.fusion == "bilinear":
+            return self.mm(t_path[:, 0], t_omic[:, 0], generator=generator)
         z = torch.cat([t_path[:, 0], t_omic[:, 0]], dim=1)
         return F.relu(self.mm_fc2(F.relu(self.mm_fc1(z))))
 
@@ -268,7 +279,7 @@ class UMEML_GAN(nn.Module):
         hp2 = torch.cat([h_path, h_path * w_path], dim=0)
         ho2 = torch.cat([h_omic, h_omic * w_omic], dim=0)
         t_path, _, t_omic, _ = self.bottleattn(hp2, ho2, generator=g)
-        logits_both = self.classifier(self._fuse(t_path, t_omic))
+        logits_both = self.classifier(self._fuse(t_path, t_omic, g))
         logits1, logits = logits_both[:b], logits_both[b:]
         return {
             "logits": logits,

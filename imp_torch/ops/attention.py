@@ -103,10 +103,12 @@ def dropout(
 ) -> torch.Tensor:
     """Inverted dropout as flax's ``nn.Dropout``: keep with probability
     1 - rate and scale the kept values by 1 / (1 - rate).  The identity
-    without a generator (eval) or at rate 0.  The bits differ from JAX's."""
+    without a generator (eval) or at rate 0.  The bits differ from JAX's.
+    The uniforms are float32 whatever the dtype of ``x``, so a float64
+    replay of a float32 step draws the same masks."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -1,7 +1,8 @@
-"""Shared NN blocks of the MIL baselines — the PyTorch counterpart of the
-non-sequence-parallel parts of ``imp_tpu/ops/blocks.py`` (reference
-``medmm/modeling/ops/blocks.py``), over fixed-shape masked inputs.
-Parameter names follow the JAX package's tree (``imp_torch.convert``)."""
+"""Shared NN blocks of the MIL baselines and the UMEML heads — the PyTorch
+counterpart of the non-sequence-parallel parts of ``imp_tpu/ops/blocks.py``
+(reference ``medmm/modeling/ops/blocks.py``), over fixed-shape masked
+inputs.  Parameter names follow the JAX package's tree
+(``imp_torch.convert``)."""
 
 from __future__ import annotations
 
@@ -31,6 +32,57 @@ class Attn_Net_Gated(nn.Module):
         a = dropout(torch.tanh(self.attention_a(x)), self.rate, generator)
         b = dropout(torch.sigmoid(self.attention_b(x)), self.rate, generator)
         return self.attention_c(a * b), x
+
+
+class BilinearFusion(nn.Module):
+    """Kronecker (outer-product) gated fusion of two vectors with appended
+    ones (reference ``blocks.py:102-184``): each side is gated by a sigmoid
+    of both inputs, projected to ``dim // scale_dim`` features, extended by
+    a constant 1, and the flattened outer product of the two goes through
+    ``encoder1`` (256 wide) and ``encoder2`` (``mmhid`` wide).  Dropout at
+    ``dropout_rate`` follows the JAX module's six places, drawn from the
+    ``generator`` passed in (None: eval)."""
+
+    def __init__(self, skip: int = 0, gate1: int = 1, gate2: int = 1, dim1: int = 128,
+                 dim2: int = 128, scale_dim1: int = 1, scale_dim2: int = 1, mmhid: int = 256,
+                 dropout_rate: float = 0.25):
+        super().__init__()
+        self.skip, self.gate1, self.gate2 = skip, gate1, gate2
+        self.dropout_rate = dropout_rate
+        og1, og2 = dim1 // scale_dim1, dim2 // scale_dim2
+        self.linear_h1 = nn.Linear(dim1, og1)
+        if gate1:
+            self.linear_z1 = nn.Linear(dim1 + dim2, og1)
+        self.linear_o1 = nn.Linear(og1, og1)
+        self.linear_h2 = nn.Linear(dim2, og2)
+        if gate2:
+            self.linear_z2 = nn.Linear(dim1 + dim2, og2)
+        self.linear_o2 = nn.Linear(og2, og2)
+        self.encoder1 = nn.Linear((og1 + 1) * (og2 + 1), 256)
+        self.encoder2 = nn.Linear(256 + (dim1 + dim2 if skip else 0), mmhid)
+
+    def forward(self, vec1: torch.Tensor, vec2: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        def drop(x):
+            return dropout(x, self.dropout_rate, generator)
+
+        both = torch.cat([vec1, vec2], dim=1)
+        o1 = F.relu(self.linear_h1(vec1))
+        if self.gate1:
+            o1 = torch.sigmoid(self.linear_z1(both)) * o1
+        o1 = drop(F.relu(self.linear_o1(o1)))
+        o2 = F.relu(self.linear_h2(vec2))
+        if self.gate2:
+            o2 = torch.sigmoid(self.linear_z2(both)) * o2
+        o2 = drop(F.relu(self.linear_o2(o2)))
+
+        ones = o1.new_ones(o1.shape[0], 1)
+        o12 = torch.einsum("bi,bj->bij", torch.cat([o1, ones], dim=1),
+                           torch.cat([o2, ones], dim=1)).reshape(o1.shape[0], -1)
+        out = drop(F.relu(self.encoder1(drop(o12))))
+        if self.skip:
+            out = torch.cat([out, vec1, vec2], dim=1)
+        return drop(F.relu(self.encoder2(out)))
 
 
 def masked_attention_pool(

@@ -235,8 +235,18 @@ class ServingModel:
         ]
         return {k: np.concatenate([c[k] for c in chunks], axis=0) for k in chunks[0]}
 
+    def require_survival(self) -> None:
+        """Raise ValueError unless the artifact is a survival model (risk is
+        defined on survival logits only)."""
+        if not str(self.manifest["task"]).lower().startswith("survival"):
+            raise ValueError(
+                f"'risk' is only defined for survival artifacts; "
+                f"this export's task is {self.manifest['task']!r}"
+            )
+
     def predict_risk(self, batch: Dict[str, Any]) -> np.ndarray:
         """Survival convenience: logits → hazards → S → risk = −ΣS."""
+        self.require_survival()
         return survival_risk(self.predict_many(batch)["logits"])
 
 
@@ -310,11 +320,8 @@ def make_http_server(
                 if not batch:
                     raise ValueError("empty 'batch'")
                 want_risk = bool(req.get("risk"))
-                if want_risk and not str(model.manifest["task"]).lower().startswith("survival"):
-                    raise ValueError(
-                        f"'risk' is only defined for survival artifacts; "
-                        f"this export's task is {model.manifest['task']!r}"
-                    )
+                if want_risk:
+                    model.require_survival()
                 outs = model.predict_many(batch)
                 resp = {
                     "outputs": {k: v.tolist() for k, v in outs.items()},

@@ -8,7 +8,9 @@ Usage:
         [KEY VALUE ...]
 
 ``--params`` is a state dict of the port's UMEML_GAN (``torch.save``), for
-example from :func:`imp_torch.convert.umeml_gan_state_dict`.  The gene
+example from :func:`imp_torch.convert.umeml_gan_state_dict`.  The head has
+4 survival bins for Survival and one logit per class of the task's label
+set otherwise (6 for Classification, 3 for Grading and Subtyping).  The gene
 groups are the DataManager's even-chunk fallback over
 ``DATASET.OMIC.DIM`` genes; ``omic_means`` defaults to zeros.  The artifact
 is what ``python -m imp_torch.tools.serve --artifact DIR`` hosts.
@@ -37,6 +39,7 @@ def setup_cfg(args):
 
 
 def main(args) -> dict:
+    from imp_torch.data.datasets import TASK_SPECS
     from imp_torch.models import build_model, survival_num_classes
     from imp_torch.serving import even_gene_groups, export_model, mbtrain_batch_template
 
@@ -48,7 +51,8 @@ def main(args) -> dict:
     model = build_model(
         cfg.MODEL.NAME,
         cfg=cfg,
-        num_classes=survival_num_classes(cfg.TASK.NAME, 0),
+        num_classes=survival_num_classes(
+            cfg.TASK.NAME, len(TASK_SPECS[cfg.TASK.NAME.lower()]["classnames"])),
         gene_group_indexes=groups,
         device="cpu",
         generator=torch.Generator().manual_seed(args.seed),

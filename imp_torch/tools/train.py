@@ -11,8 +11,9 @@
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 from ..config import clean_cfg, get_cfg_default
 from ..utils.logger import setup_logger
@@ -49,7 +50,10 @@ def setup_cfg(args):
     return cfg
 
 
-def main(args) -> Optional[float]:
+@contextlib.contextmanager
+def session(args) -> Iterator:
+    """The frozen cfg of ``args``, with the seed set and the log written to
+    ``OUTPUT_DIR/log.txt`` until the block ends."""
     cfg = setup_cfg(args)
     if cfg.SEED >= 0:
         print(f"Setting fixed seed: {cfg.SEED}")
@@ -61,7 +65,15 @@ def main(args) -> Optional[float]:
             print(cfg)
             print("*** Env info ***")
             print(collect_env_info())
+        yield cfg
+    finally:
+        if tee is not None:  # restore stdout for an in-process caller
+            sys.stdout = tee.console
+            tee.close()
 
+
+def main(args) -> Optional[float]:
+    with session(args) as cfg:
         from ..engine import build_trainer
 
         trainer = build_trainer(cfg, device=args.device)
@@ -77,10 +89,6 @@ def main(args) -> Optional[float]:
                 args.umeml_gan_test_insample_without_omic_ratio,
             )
         return None
-    finally:
-        if tee is not None:  # restore stdout for an in-process caller
-            sys.stdout = tee.console
-            tee.close()
 
 
 def build_parser() -> argparse.ArgumentParser:

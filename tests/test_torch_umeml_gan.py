@@ -166,9 +166,13 @@ def test_state_dict_refuses_missing_extra_and_misshapen_keys(flax_params):
 def test_unported_options_raise():
     kw = dict(num_classes=4, gene_group_indexes=GROUPS, feat_dim=FEAT, hidden=HIDDEN)
     for opt in ({"head_fused": False}, {"stacked_pairs": True},
-                {"bag_dtype": torch.bfloat16}, {"fusion": "bilinear"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                {"bag_dtype": torch.bfloat16}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §A item 4"):
             UMEML_GAN(**kw, **opt)
+    # bilinear fusion is ported (tests/test_torch_tasks*.py); others are unknown
+    assert hasattr(UMEML_GAN(**kw, fusion="bilinear"), "mm")
+    with pytest.raises(ValueError, match="Unknown fusion"):
+        UMEML_GAN(**kw, fusion="sum")
     with pytest.raises(ValueError, match="TPU.ATTENTION"):
         resolve_attention("dense")
     assert resolve_attention("auto") == "nystrom"
