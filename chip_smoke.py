@@ -11,11 +11,13 @@ Phases, each printing one JSON line (the run fails on the first error):
    exists, the one PyTorch call that computes the same function
    (``library_ms``, a yardstick only): K1 (flash forward) at the serving
    shapes, the 10 000-patch bag envelope (a fully masked slide among
-   them), TransMIL's 10 001-token bag and a 4 096-token batch whose mask
-   is no prefix at K1's own tile, with its 3xTF32 bound beside the
+   them), TransMIL's 10 001-token bag, CMTA's (d = 32, a ragged mask) and
+   a 4 096-token batch whose mask is no prefix at K1's own tile, with its
+   3xTF32 bound beside the
    fp32-core figure of its first design;
    K2/K3 (flash backward) at TransMIL's bag, the bag envelope with a fully
-   masked slide, UMEML_GAN's 17-token decoder, and a 4 096-token batch whose
+   masked slide, UMEML_GAN's 17-token decoder, CMTA's bag and a 4 096-token
+   batch whose
    mask is no prefix (key tiles alternately valid and masked, one valid key
    alone in a masked tile, and a ragged slide), with ``ptxas``'s registers
    and spills and each CTA's dynamic shared memory; K4/K5 (modularity degree
@@ -26,7 +28,8 @@ Phases, each printing one JSON line (the run fails on the first error):
    beside the fp32-core figure, ``ptxas`` and the shared memory; K6/K7
    (the fused Newton-Schulz pseudo-inverse, forward and backward) on
    softmax rows at UMEML's TransLayers (batch 2: 16 matrices of 128),
-   UMEML_GAN's at batch 8 (64 of 128) and TransMIL's (8 of 256), with the
+   UMEML_GAN's at batch 8 (64 of 128), TransMIL's (8 of 256) and CMTA's
+   (8 of 128), with the
    fused mode's gradient against autograd through the chain of products,
    and the chain's own times.
 3. ``serve_flash`` — the serving path: UMEML_GAN at the full width of
@@ -88,6 +91,28 @@ Phases, each printing one JSON line (the run fails on the first error):
    cohort of 12 slides, 4 of them without a molecular CSV: those are served
    with ``without_omic = 1``, the accuracy is reported, and
    ``test_new_{path,omic}.txt`` hold 12 rows each.
+14. ``train_zoo`` — the baseline zoo: each of the eight trainers (MCAT,
+   CMTA, Porpoise, ConCAT, ADD, HFB, SNN, SNNM) for one epoch through
+   ``python -m imp_torch.tools.train --config-file configs/Survival/X.yaml``
+   on the same 16 slides (bags padded to 10 000 x 512, 1 000 genes, batch
+   1, the default ``TPU.ATTENTION``: no kernel launch), and Porpoise at
+   Classification (6 classes): losses finite, the metric line, a strict
+   reload of the epoch's checkpoint; MCAT at ``OPTIM.GRAD_ACCUM 4`` makes
+   one optimizer update per 4 steps and its parameters stay still between;
+   HFB's BatchNorm statistics move and its reload gives the same eval
+   logits.
+15. ``train_cmta`` / ``train_cmta_nystrom`` — CMTA (configs/Survival/
+   CMTA.yaml) for one epoch through the CLI under flash (K1 once per
+   TransLayer call, 8 per step: 4 over the 10 001-token bag, 4 over the 6
+   genomics tokens; K2/K3 once per call with grad, never in eval) and at
+   ``auto`` with every pseudo-inverse fused (K6 8 per step at (g, m) =
+   (8, 128), K7 8 per step with grad, K6 8 per eval batch).
+16. ``train_step_cmta`` — one CMTA step (its alignment loss included) at the
+   full 10 000-patch slide through the kernels against the plain versions:
+   under flash against the plain flash attention, then its step time; fused
+   against the chain, then the A/B of the two; each with
+   :func:`float64_check`'s margins for the gradients float32 cannot
+   resolve, the device busy time and the idle share.
 ``train_step`` (phase 6) also times UMEML_GAN's batch-8 step with the fused
 mode.  The fused mode has no cfg key (JAX's ``PINV_MODE`` is a module
 global): the runs build their models fused with :func:`pinv_mode` around
@@ -97,7 +122,9 @@ chain).
 
 Then a ``kernels`` line (every ported kernel with its launches on its
 main path: serving for K1, TransMIL training for K2/K3, MBTRAIN for
-K4/K5, UMEML training for K6/K7; K2 and K3 each with its own device time
+K4/K5, UMEML training for K6/K7, each with a ``cmta`` object: its launches
+in CMTA's epoch under flash (K1-K3) or fused (K6/K7) and its times at CMTA's
+shape, K1-K3 at (1, 8, 10 001, 32), K6/K7 at (8, 128); K2 and K3 each with its own device time
 and plain version, no library call, and a ``pair`` object that times dq,
 dk and dv together through the wrapper, the plain backward and SDPA's
 backward, with the name of SDPA's backward kernel from the trace; K6 and K7 with a ``chain`` object, the times of the unrolled
@@ -375,6 +402,7 @@ FLASH_SHAPES = [
     ("bag_n10000_d64", 3, 8, 10000, 64, (10000, 7313, 0)),
     ("transmil_n10001_d64", 1, 8, 10001, 64, (7314,)),  # TransMIL: 7 313 patches + cls
     ("tiles_n4096_d64", 2, 8, 4096, 64, ("tiles", 4001)),  # a mask that is no prefix
+    ("cmta_n10001_d32", 1, 8, 10001, 32, (7314,)),  # CMTA's bag encoder: 7 313 patches + cls
 ]
 #: launches of each serving shape in one eval forward
 FLASH_PER_FORWARD = {"serve_b8_n7": 4, "serve_b16_n14": 2}
@@ -487,8 +515,11 @@ BWD_SHAPES = [
     ("bag_n10000_d32", 3, 8, 10000, 32, (10000, 7313, 0)),  # (b) one slide fully masked
     ("umeml_b8_n17_d32", 8, 8, 17, 32, None),  # (c) UMEML_GAN's decoder at batch 8
     ("tiles_n4096_d64", 2, 8, 4096, 64, ("tiles", 4001)),  # (d) a mask that is no prefix
+    ("cmta_n10001_d32", 1, 8, 10001, 32, (7314,)),  # (e) CMTA's bag encoder
 ]
 BWD_MAIN_SHAPE = "transmil_n10001_d64"
+#: the flash shape of CMTA's bag TransLayers (its genomics ones run 6 tokens)
+CMTA_FLASH_SHAPE = "cmta_n10001_d32"
 
 
 def key_valid(n: int, spec, device, tile=None):
@@ -810,7 +841,9 @@ PINV_SHAPES = [
     ("umeml_b2_m128", 16, 128),  # UMEML's TransLayers at UMEML.yaml's batch 2
     ("umeml_gan_b8_m128", 64, 128),  # (a) UMEML_GAN's encode TransLayers at batch 8
     ("transmil_m256", 8, 256),  # (b) TransMIL's two TransLayers
+    ("cmta_m128", 8, 128),  # (c) CMTA's eight TransLayers, batch 1
 ]
+CMTA_PINV_SHAPE = "cmta_m128"
 PINV_MAIN_SHAPE = "umeml_b2_m128"
 PINV_ITERS = 6
 PINV_KERNEL_SYMBOL = {"pinv_fwd": "pinv_fwd_kernel", "pinv_bwd": "pinv_bwd_kernel"}
@@ -989,11 +1022,12 @@ def plain_attention():
 @contextlib.contextmanager
 def pinv_mode(mode: str):
     """Build the Nyström models with ``pinv_mode=mode`` while inside: the
-    registered builders of UMEML, UMEML_GAN and TransMIL get it bound (it
-    has no cfg key, as JAX's ``PINV_MODE`` has none)."""
+    registered builders of UMEML, UMEML_GAN, TransMIL and CMTA get it bound
+    (it has no cfg key, as JAX's ``PINV_MODE`` has none)."""
+    from imp_torch.engine import fusion_trainers  # noqa: F401  (registers cmta)
     from imp_torch.models import MODEL_REGISTRY
 
-    names = ("umeml", "umeml_gan", "transmil")
+    names = ("umeml", "umeml_gan", "transmil", "cmta")
     saved = {n: MODEL_REGISTRY.get(n) for n in names}
     for n, builder in saved.items():
         MODEL_REGISTRY.register_as(n, force=True)(functools.partial(builder, pinv_mode=mode))
@@ -2104,13 +2138,15 @@ def phase_train_step_tasks(card: str, root: str, out: str):
 
 
 def float64_check(loss_and_grads, model, db, plain, names) -> dict:
-    """For a step whose gradients miss the gate: the same step (same draws)
-    through the kernels and the plain versions in float32 and the plain
-    versions in float64.  A gradient passes when the kernels are within
+    """For a step whose gradients miss the gate, or to record margins: the
+    same step (same draws) through the kernels and the plain versions in
+    float32 and the plain versions in float64.  A gradient passes when the kernels are within
     STEP_TOL of the plain version or, where float32 cannot resolve it (the
     plain float32 gradient is itself more than STEP_TOL off the float64
     one), when the kernels are no further from the float64 gradient than
-    twice the plain float32 version."""
+    twice the plain float32 version.  ``params`` lists the gradients past
+    STEP_TOL either way; ``worst`` names the farthest from float64 of each
+    float32 run, with its distance (CMTA's step runs the check always)."""
     import copy
 
     import torch
@@ -2121,18 +2157,21 @@ def float64_check(loss_and_grads, model, db, plain, names) -> dict:
     with plain():
         _, _, flat = loss_and_grads()
         _, _, exact = loss_and_grads(m64, db64)
-    rows, ok = {}, True
+    rows, ok, worst = {}, True, {"kernel_vs_float64": (None, 0.0), "plain_vs_float64": (None, 0.0)}
     for n, k, p, x in zip(names, kern, flat, exact):
         k_p, k_x, p_x = rel_err(k, p), rel_err(k.double(), x), rel_err(p.double(), x)
         passed = k_p <= STEP_TOL or (p_x > STEP_TOL and k_x <= 2 * p_x)
         ok &= passed
+        for key, err in (("kernel_vs_float64", k_x), ("plain_vs_float64", p_x)):
+            if err > worst[key][1]:
+                worst[key] = (n, err)
         if k_p > STEP_TOL or p_x > STEP_TOL:
             rows[n] = {"kernel_vs_plain": k_p, "kernel_vs_float64": k_x,
                        "plain_vs_float64": p_x, "max_abs_grad": x.abs().max().item(),
                        "passed": passed}
     del m64, db64
     torch.cuda.empty_cache()
-    return {"ok": ok, "params": rows}
+    return {"ok": ok, "params": rows, "worst": worst}
 
 
 def make_external_tree(root: str) -> None:
@@ -2233,6 +2272,261 @@ def phase_test_new(card: str, root: str, out: str):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phases 14-16: the baseline zoo
+# ---------------------------------------------------------------------------
+
+ZOO = ("MCAT", "CMTA", "Porpoise", "ConCAT", "ADD", "HFB", "SNN", "SNNM")
+ZOO_ACCUM = 4  # MCAT's OPTIM.GRAD_ACCUM in train_zoo (its default is 32)
+#: the kernels of one CMTA train step and of one eval batch: its eight
+#: TransLayers under flash (K1, K2, K3) or Nyström with the fused mode (K6, K7)
+CMTA_LAUNCHES = {
+    "flash": ({"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8}, {"flash_fwd": 8}),
+    "auto": ({"pinv_fwd": 8, "pinv_bwd": 8}, {"pinv_fwd": 8}),
+}
+
+
+def zoo_argv(root: str, out: str, trainer: str, task: str = "Survival", *opts) -> list:
+    """One epoch of ``trainer`` through the CLI on its config of ``task``."""
+    return ["--root", root, "--seed", "1", "--trainer", trainer, "--config-file",
+            task_yaml(task, trainer), "--output-dir", out, "--device", DEVICE,
+            "OPTIM.MAX_EPOCH", "1", *opts]
+
+
+@contextlib.contextmanager
+def watched_steps(record: list):
+    """After each ``StandardTrainer.train_step``: the trainer, its
+    optimizer's update count and whether any parameter moved."""
+    import torch
+
+    from imp_torch.engine.trainer import StandardTrainer
+
+    step = StandardTrainer.train_step
+
+    def wrapper(self, db):
+        before = [p.detach().clone() for p in self.model.parameters()]
+        out = step(self, db)
+        moved = any(not torch.equal(a, p) for a, p in zip(before, self.model.parameters()))
+        record.append((self, self.optimizer.updates, moved))
+        return out
+
+    StandardTrainer.train_step = wrapper
+    try:
+        yield
+    finally:
+        StandardTrainer.train_step = step
+
+
+def phase_train_zoo(card: str, root: str, out: str):
+    """Each of the eight zoo trainers for one epoch through the CLI on its
+    Survival config (full widths, batch 1, ``TPU.ATTENTION`` at its default,
+    so no kernel launches), plus Porpoise at Classification: losses finite,
+    the metric line, a strict reload of the epoch's checkpoint; MCAT at
+    ``OPTIM.GRAD_ACCUM`` 4 updates once per 4 steps and its parameters stay
+    still between; HFB's BatchNorm statistics move and its reload gives the
+    same eval logits."""
+    import torch
+
+    from imp_torch.engine.trainer import StandardTrainer
+    from imp_torch.models import build_model
+
+    runs, seconds_all = [], 0.0
+    for trainer_name, task in [(t, "Survival") for t in ZOO] + [("Porpoise", "Classification")]:
+        run_out = os.path.join(out, f"{trainer_name}_{task}")
+        opts = ("OPTIM.GRAD_ACCUM", str(ZOO_ACCUM)) if trainer_name == "MCAT" else ()
+        steps = []
+        with watched_steps(steps):
+            result, counts, record, seconds, log = run_trainer(
+                zoo_argv(root, run_out, trainer_name, task, *opts), StandardTrainer,
+                ("train_step",), f"chip_smoke_zoo_{trainer_name}_{task}_log.txt")
+        seconds_all += seconds
+        trainer = steps[-1][0]
+        losses = [float(m["loss"]) for _, _, _, m in record]
+        metric = "accuracy" if task == "Classification" else "C-Index"
+        lines = [line for line in log.splitlines() if line.startswith(f"* {metric}:")]
+        model = build_model(trainer.MODEL_NAME, cfg=trainer.cfg,
+                            num_classes=trainer.model.classifier.out_features,
+                            device=DEVICE, **trainer.build_kwargs())
+        ckpt_name, ckpt_epoch = reload_last(run_out, model)
+        row = {"trainer": trainer_name, "config": f"configs/{task}/{trainer_name}.yaml",
+               "bag_pad": int(trainer.cfg.DATASET.BAG_PAD),
+               "feature": int(trainer.cfg.DATASET.PATH.DIM), "genes": trainer.dm.omic_dim,
+               "batch": int(trainer.cfg.DATALOADER.TRAIN.BATCH_SIZE),
+               "classes": int(trainer.model.classifier.out_features),
+               "params": sum(p.numel() for p in trainer.model.parameters()),
+               "train_steps": len(steps), "launches": only_launched(counts),
+               "losses_finite": bool(np.isfinite(losses).all()), "last_loss": losses[-1],
+               "metric_lines": lines, "result": result, "checkpoint": ckpt_name,
+               "checkpoint_epoch": ckpt_epoch, "seconds": seconds}
+        require(len(steps) > 0 and row["losses_finite"] and len(lines) >= 2
+                and result is not None and np.isfinite(result) and ckpt_epoch == 1,
+                f"zoo trainer {trainer_name} at {task}: {row}")
+        require(not row["launches"], f"kernels launched at the default attention: {row}")
+        if trainer_name == "MCAT":
+            moved = [m for _, _, m in steps]
+            row.update(grad_accum=int(trainer.cfg.OPTIM.GRAD_ACCUM),
+                       optimizer_updates=steps[-1][1],
+                       moved_at_steps=[i + 1 for i, m in enumerate(moved) if m])
+            require(row["grad_accum"] == ZOO_ACCUM
+                    and row["optimizer_updates"] == len(steps) // ZOO_ACCUM
+                    and moved == [(i + 1) % ZOO_ACCUM == 0 for i in range(len(steps))],
+                    f"MCAT's gradient accumulation: {row}")
+        if trainer_name == "HFB":
+            norm = trainer.model.fusion_module.norm
+            with seeded_bags():
+                db = trainer._device_batch(next(iter(trainer.test_loader)))
+            with torch.no_grad():
+                diff = (model(db)["logits"] - trainer.model(db)["logits"]).abs().max().item()
+            row.update(running_var_moved=bool((norm.running_var != 1).any()),
+                       running_mean_moved=bool((norm.running_mean != 0).any()),
+                       reload_eval_logits_max_abs_diff=diff)
+            require(row["running_var_moved"] and row["running_mean_moved"] and diff <= 1e-6,
+                    f"HFB's batch statistics through a reload: {row}")
+        runs.append(row)
+        del trainer, model, steps
+        torch.cuda.empty_cache()
+    row = {"phase": "train_zoo", "card": card, "entry": "python -m imp_torch.tools.train",
+           "slides": len(TRAIN_LENGTHS), "epochs": 1, "runs": runs, "seconds": seconds_all}
+    emit(row)
+    return row
+
+
+def cmta_modes(attention: str):
+    """Under Nyström the CMTA runs build their models fused."""
+    return contextlib.nullcontext() if attention == "flash" else pinv_mode("fused")
+
+
+def phase_train_cmta(card: str, root: str, out: str, attention: str = "flash"):
+    """CMTA for one epoch through the CLI at full width, under flash (K1 once
+    per TransLayer call, K2 and K3 once per call with grad: 8 each per train
+    step, K1 8 per eval batch) or at ``auto`` with the fused pseudo-inverse
+    (K6 and K7 8 per train step, K6 8 per eval batch), nothing else; losses
+    finite, the C-index line, a strict reload."""
+    import torch
+
+    from imp_torch.engine.fusion_trainers import CMTA
+    from imp_torch.models import build_model
+
+    phase = "train_cmta" if attention == "flash" else "train_cmta_nystrom"
+    step_launches, eval_launches = CMTA_LAUNCHES[attention]
+    with cmta_modes(attention):
+        result, counts, record, seconds, log = run_trainer(
+            zoo_argv(root, out, "CMTA", "Survival", "TPU.ATTENTION", attention), CMTA,
+            ("train_step", "test", "_eval_batch"), f"chip_smoke_{phase}_log.txt")
+        steps = [r for r in record if r[0] == "train_step"]
+        tests = [r for r in record if r[0] == "test"]
+        eval_batches = sum(r[0] == "_eval_batch" for r in record)
+        per_step_ok = all(only_launched(d) == step_launches and c == {"calls": 8, "grad": 8}
+                          for _, d, c, _ in steps)
+        eval_counts = only_launched({k: sum(d[k] for _, d, _, _ in tests) for k in counts})
+        losses = [float(m["loss"]) for _, _, _, m in steps]
+        cindex = [line for line in log.splitlines() if line.startswith("* C-Index:")]
+        cfg = yaml_cfg(task_yaml("Survival", "CMTA"), **{"TPU.ATTENTION": attention})
+        model = build_model("cmta", cfg=cfg, num_classes=4, device=DEVICE)
+    ckpt_name, ckpt_epoch = reload_last(out, model)
+    row = {
+        "phase": phase, "card": card, "entry": "python -m imp_torch.tools.train",
+        "argv": zoo_argv("ROOT", "OUT", "CMTA", "Survival", "TPU.ATTENTION", attention),
+        "pinv_mode": None if attention == "flash" else "fused",
+        "fused_pinvs": fused_pinvs(model), "slides": len(TRAIN_LENGTHS), "batch": 1,
+        "tokens": {"bag": int(cfg.DATASET.BAG_PAD) + 1, "genomics": 6}, "epochs": 1,
+        "train_steps": len(steps), "evaluations": len(tests), "eval_batches": eval_batches,
+        "launches": counts, "launches_per_step": step_launches, "per_step_ok": per_step_ok,
+        "eval_launches": eval_counts, "losses_finite": bool(np.isfinite(losses).all()),
+        "last_loss": losses[-1] if losses else None, "cindex_lines": cindex,
+        "result_cindex": result, "checkpoint": ckpt_name, "checkpoint_epoch": ckpt_epoch,
+        "seconds": seconds, "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    emit(row)
+    require(len(steps) > 0 and per_step_ok, f"kernels per CMTA train step: {row}")
+    require(eval_batches > 0
+            and eval_counts == {k: v * eval_batches for k, v in eval_launches.items()},
+            f"kernels per CMTA eval batch: {row}")
+    require(all(counts[k] == v * len(steps) for k, v in step_launches.items()
+                if k not in eval_launches), row)
+    require(attention == "flash" or row["fused_pinvs"] == 8, row)
+    require(row["losses_finite"] and result is not None and np.isfinite(result)
+            and len(cindex) >= 2 and ckpt_epoch == 1, f"CMTA training: {row}")
+    return row, counts
+
+
+def phase_train_step_cmta(card: str, root: str, out: str):
+    """One CMTA step at a full 10 000-patch slide (the alignment loss
+    included, same dropout draws) through the kernels against the plain
+    versions, for each mode: under flash against the plain flash attention
+    (K1-K3), at ``auto`` fused against the chain (K6/K7); the loss and every
+    gradient within STEP_TOL, or within :func:`float64_check`'s arbitration,
+    whose margins are recorded for every gradient float32 cannot resolve;
+    then the step time (flash) and the chain/fused A/B (auto), each with its
+    device busy time and idle share."""
+    import torch
+
+    rows, batch = {}, None
+    for attention in ("flash", "auto"):
+        flash = attention == "flash"
+        clock = {"start": time.perf_counter()}
+        with cmta_modes(attention):
+            trainer = trainer_for(task_yaml("Survival", "CMTA"), root, out, "CMTA",
+                                  **{"TPU.ATTENTION": attention})
+        if batch is None:  # the fullest slide, the same for both modes
+            with seeded_bags():
+                batch = max((b for loader in (trainer.train_loader, trainer.test_loader)
+                             for b in loader), key=lambda b: int(b["img_mask"].sum()))
+        db = trainer._device_batch(batch)
+        clock["built"] = time.perf_counter()
+        model, g = trainer.model, trainer.generator
+        state = g.get_state()
+        names = [n for n, _ in model.named_parameters()]
+
+        def loss_and_grads(model=model, db=db):
+            g.set_state(state)
+            params = [dict(model.named_parameters())[n] for n in names]
+            out_ = model(db, train=True, generator=g)
+            align = trainer.extra_loss(out_, db)
+            loss = trainer.task_loss(out_["logits"], db) + align
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if gr is None else gr for p, gr in zip(params, grads)]
+            return loss.detach(), {"alignment_loss": align.detach()}, grads
+
+        plain = plain_attention if flash else chain_pinv
+        check, counted = grads_check(loss_and_grads, plain, names)
+        require(only_launched(counted) == CMTA_LAUNCHES[attention][0], counted)
+        clock["checked"] = time.perf_counter()
+        check["float64"] = float64_check(loss_and_grads, model, db, plain, names)
+        clock["float64"] = time.perf_counter()
+        require(check["loss_rel"] <= STEP_TOL and check["alignment_loss_rel"] <= STEP_TOL
+                and (check["grad_rel"] <= STEP_TOL or check["float64"]["ok"]),
+                f"CMTA step through the kernels vs the plain versions ({attention}): {check}")
+
+        def step():
+            return trainer.train_step(db)
+
+        b = len(batch["patient_id"])
+        row = {"check": check, "batch": b, "bag_valid": int(batch["img_mask"].sum()),
+               "tokens": int(trainer.cfg.DATASET.BAG_PAD) + 1}
+        if flash:
+            timing = time_step(step, FLASH_KERNEL_NAMES)
+            row.update(**timing, slides_per_s=b / (timing["step_ms_median"] / 1e3))
+            require(timing["loss_finite"], row)
+        else:
+            ab = pinv_ab(step, ())
+            row.update(pinv_ab=ab, slides_per_s={m: b / (ab[m]["step_ms_median"] / 1e3)
+                                                 for m in ("chain", "fused")})
+            require(all(t["loss_finite"] for m in ("chain", "fused") for t in ab[m]["turns"]), row)
+            require(ab["fused"]["launches_per_step"] == CMTA_LAUNCHES["auto"][0]
+                    and ab["chain"]["launches_per_step"] == {}, ab)
+        stamps = list(clock.values()) + [time.perf_counter()]
+        row["seconds"] = dict(zip(("build", "check", "float64", "timing"),
+                                  np.diff(stamps).tolist()))
+        rows[attention] = row
+        del trainer, model, db
+        torch.cuda.empty_cache()
+    row = {"phase": "train_step_cmta", "card": card, "flash": rows["flash"],
+           "nystrom": rows["auto"]}
+    emit(row)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -2253,28 +2547,67 @@ def main() -> int:
         "torch": torch.__version__, "cuda": torch.version.cuda,
     })
 
-    krows = phase_kernel(card, report)
-    brows = phase_flash_bwd(card, report)
-    mrows = phase_modularity(card, report)
-    prows = phase_pinv(card, report)
+    seconds = {}  # wall seconds of each phase
+
+    def clocked(name, phase, *args, **kw):
+        t = time.perf_counter()
+        out = phase(*args, **kw)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    krows = clocked("kernel_flash_fwd", phase_kernel, card, report)
+    brows = clocked("kernel_flash_bwd", phase_flash_bwd, card, report)
+    mrows = clocked("kernel_modularity", phase_modularity, card, report)
+    prows = clocked("kernel_pinv", phase_pinv, card, report)
     with tempfile.TemporaryDirectory(prefix="imp_torch_smoke_") as tmp:
-        _, counts = phase_serve("flash", card, tmp)
-        phase_serve("auto", card, tmp)
+        _, counts = clocked("serve_flash", phase_serve, "flash", card, tmp)
+        clocked("serve_nystrom", phase_serve, "auto", card, tmp)
         root = make_train_tree(os.path.join(tmp, "tree"))
-        _, train_counts = phase_train(card, root, os.path.join(tmp, "train"))
-        phase_train_step(card, root, os.path.join(tmp, "train_step"))
-        _, umeml_counts = phase_train_umeml(card, root, os.path.join(tmp, "umeml"))
-        phase_train_step_umeml(card, root, os.path.join(tmp, "umeml_step"))
-        _, transmil_counts = phase_train_transmil(card, root, os.path.join(tmp, "transmil"))
-        phase_train_step_transmil(card, root, os.path.join(tmp, "transmil_step"))
-        phase_train_transmil(card, root, os.path.join(tmp, "transmil_nystrom"), attention="auto")
-        phase_train_step_transmil(card, root, os.path.join(tmp, "transmil_nystrom_step"),
-                                  attention="auto")
-        phase_train(card, root, os.path.join(tmp, "train_flash"), attention="flash")
-        phase_train_step(card, root, os.path.join(tmp, "train_step_flash"), attention="flash")
-        phase_train_classification(card, root, os.path.join(tmp, "classification"))
-        phase_train_step_tasks(card, root, os.path.join(tmp, "task_steps"))
-        phase_test_new(card, root, os.path.join(tmp, "test_new"))
+        _, train_counts = clocked("train", phase_train, card, root, os.path.join(tmp, "train"))
+        clocked("train_step", phase_train_step, card, root, os.path.join(tmp, "train_step"))
+        _, umeml_counts = clocked("train_umeml", phase_train_umeml, card, root,
+                                  os.path.join(tmp, "umeml"))
+        clocked("train_step_umeml", phase_train_step_umeml, card, root,
+                os.path.join(tmp, "umeml_step"))
+        _, transmil_counts = clocked("train_transmil", phase_train_transmil, card, root,
+                                     os.path.join(tmp, "transmil"))
+        clocked("train_step_transmil", phase_train_step_transmil, card, root,
+                os.path.join(tmp, "transmil_step"))
+        clocked("train_transmil_nystrom", phase_train_transmil, card, root,
+                os.path.join(tmp, "transmil_nystrom"), attention="auto")
+        clocked("train_step_transmil_nystrom", phase_train_step_transmil, card, root,
+                os.path.join(tmp, "transmil_nystrom_step"), attention="auto")
+        clocked("train_flash", phase_train, card, root, os.path.join(tmp, "train_flash"),
+                attention="flash")
+        clocked("train_step_flash", phase_train_step, card, root,
+                os.path.join(tmp, "train_step_flash"), attention="flash")
+        clocked("train_classification", phase_train_classification, card, root,
+                os.path.join(tmp, "classification"))
+        clocked("train_step_tasks", phase_train_step_tasks, card, root,
+                os.path.join(tmp, "task_steps"))
+        clocked("test_new", phase_test_new, card, root, os.path.join(tmp, "test_new"))
+        clocked("train_zoo", phase_train_zoo, card, root, os.path.join(tmp, "zoo"))
+        _, cmta_flash_counts = clocked("train_cmta", phase_train_cmta, card, root,
+                                       os.path.join(tmp, "cmta"))
+        _, cmta_fused_counts = clocked("train_cmta_nystrom", phase_train_cmta, card, root,
+                                       os.path.join(tmp, "cmta_nystrom"), attention="auto")
+        clocked("train_step_cmta", phase_train_step_cmta, card, root,
+                os.path.join(tmp, "cmta_step"))
+    emit({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t0})
+
+    def cmta_entry(name):
+        """The kernel on CMTA's path: launches in one epoch, time at its shape."""
+        if name.startswith("pinv"):
+            main, counts = prows[(name, CMTA_PINV_SHAPE)], cmta_fused_counts
+        elif name == "flash_fwd":
+            main, counts = krows[CMTA_FLASH_SHAPE], cmta_flash_counts
+        else:
+            main, counts = brows[(name, CMTA_FLASH_SHAPE)], cmta_flash_counts
+        return {"launches": counts[name], "shape": main["shape"], "ms": main["ms"],
+                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+                **({"pair": main["pair"]} if "pair" in main else {}),
+                **({"chain": main["chain"]} if "chain" in main else {})}
 
     def per_forward(key):
         return sum(krows[s][key] * n for s, n in FLASH_PER_FORWARD.items())
@@ -2302,6 +2635,7 @@ def main() -> int:
             "bound_by": main["bound_by"], "library_ms": main["library_ms"], "pair": main["pair"],
             "share_of_bound": main["share_of_bound"],
             "dynamic_smem_bytes": main["dynamic_smem_bytes"], "ptxas": main["ptxas"],
+            "cmta": cmta_entry(name),
         }
 
     def pinv_entry(name):
@@ -2314,7 +2648,7 @@ def main() -> int:
             "bound_fp32_cores_ms": main["bound_fp32_cores_ms"],
             "share_of_bound": main["share_of_bound"], "same_bits_twice": main["same_bits_twice"],
             "cluster": main["cluster"], "dynamic_smem_bytes": main["dynamic_smem_bytes"],
-            "ptxas": main["ptxas"],
+            "ptxas": main["ptxas"], "cmta": cmta_entry(name),
         }
 
     emit({"kernels": [
@@ -2328,6 +2662,7 @@ def main() -> int:
             "bound_by": "bytes" if all(krows[s]["bound_by"] == "bytes" for s in FLASH_PER_FORWARD)
             else "operations",
             "library_ms": per_forward("library_ms"),
+            "cmta": cmta_entry("flash_fwd"),
         },
         *(flash_bwd_entry(n) for n in ("flash_bwd_dq", "flash_bwd_dkv")),
         modularity_entry("modularity_deg"),

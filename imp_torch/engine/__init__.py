@@ -4,9 +4,11 @@ TRAINER_REGISTRY = Registry("TRAINER")
 
 
 def build_trainer(cfg, device="cuda"):
-    """The trainer ``cfg.TRAINER.NAME`` on ``device`` (the port has MBTRAIN,
-    ABMIL and TransMIL)."""
-    from . import baselines, mbtrain  # noqa: F401  (register)
+    """The trainer ``cfg.TRAINER.NAME`` on ``device``: MBTRAIN, the
+    unimodal baselines (ABMIL, TransMIL, SNN, SNNM) and the fusion baselines
+    (MCAT, CMTA, Porpoise, ConCAT, ADD, HFB); CLIPOMIC raises its
+    deferral."""
+    from . import baselines, fusion_trainers, mbtrain  # noqa: F401  (register)
     from ..utils.registry import check_availability
 
     check_availability(cfg.TRAINER.NAME, list(TRAINER_REGISTRY.registered_names()))

@@ -1,37 +1,44 @@
-"""The MIL baseline trainers ABMIL and TransMIL — the PyTorch counterpart of
-``imp_tpu/engine/baselines.py`` (reference ``medmm/engine/{abmil,transmil}.py``),
-registered under the same names.  SNN, SNNM and CLIPOMIC are ROADMAP.md
-§A item 6."""
+"""The unimodal baseline trainers ABMIL and TransMIL (pathology), SNN and
+SNNM (genomics) — the PyTorch counterpart of ``imp_tpu/engine/baselines.py``
+(reference ``medmm/engine/{abmil,transmil,snn,snnm}.py``), registered under
+the same names.  CLIPOMIC needs the CLIP text tower, ROADMAP.md §A item 7."""
 
 from __future__ import annotations
 
-import torch
-
 from . import TRAINER_REGISTRY
-from .trainer import StandardTrainer
-from ..models import build_model, survival_num_classes
-
-
-class _MILTrainer(StandardTrainer):
-    MODEL_NAME = ""
-
-    def build_network(self):
-        cfg = self.cfg
-        return build_model(
-            self.MODEL_NAME, cfg=cfg,
-            num_classes=survival_num_classes(cfg.TASK.NAME, self.num_classes),
-            device=self.device, generator=torch.Generator().manual_seed(max(cfg.SEED, 0)),
-        )
+from .trainer import OmicTrainer, StandardTrainer, deferred
 
 
 @TRAINER_REGISTRY.register()
-class ABMIL(_MILTrainer):
+class ABMIL(StandardTrainer):
     MODEL_NAME = "abmil"
 
 
 @TRAINER_REGISTRY.register()
-class TransMIL(_MILTrainer):
+class TransMIL(StandardTrainer):
     """TransMIL; its two TransLayers follow ``TPU.ATTENTION`` (under
     ``flash``, K1 forward and K2/K3 backward on the card)."""
 
     MODEL_NAME = "transmil"
+
+
+@TRAINER_REGISTRY.register()
+class SNN(OmicTrainer):
+    """SNN over the first min(1000, G) genes."""
+
+    MODEL_NAME = "snn"
+
+
+@TRAINER_REGISTRY.register()
+class SNNM(OmicTrainer):
+    """SNN_M over chunks of 50 genes."""
+
+    MODEL_NAME = "snnm"
+
+
+@TRAINER_REGISTRY.register()
+class CLIPOMIC(StandardTrainer):
+    """The CLIP-text-tower omics baseline: not ported yet."""
+
+    def check_cfg(self, cfg):
+        raise deferred("CLIPOMIC (the CLIP text tower and its prompt learner)", 7)

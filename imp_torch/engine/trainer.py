@@ -6,8 +6,9 @@ selection, best/last checkpoints and the ``* metric: X%`` log lines
 
 Two trainers stand on :class:`TrainerBase`: MBTRAIN (``engine/mbtrain.py``,
 UMEML_GAN with its own curriculum loop) and :class:`StandardTrainer`, the
-one-optimizer loop of the MIL baselines (``engine/baselines.py``: ABMIL,
-TransMIL).  Both run the four tasks: Survival (C-index, from a survival
+one-optimizer loop of the baselines (``engine/baselines.py``: ABMIL,
+TransMIL, SNN, SNNM; ``engine/fusion_trainers.py``: MCAT, CMTA, Porpoise,
+ConCAT, ADD, HFB).  Both run the four tasks: Survival (C-index, from a survival
 head of 4 bins) and Classification, Grading and Subtyping (cross-entropy;
 accuracy, AUC and macro-F1 from ``evaluation/evaluators.py``).
 
@@ -31,6 +32,7 @@ from torch import nn
 from ..data import DataManager
 from ..evaluation import build_evaluator
 from ..losses.survival import build_loss, hazards_to_survival
+from ..models import build_model, survival_num_classes
 from ..optim import build_optimizer, lr_at_epoch
 from ..utils.checkpoint import (
     best_checkpoint_path,
@@ -332,17 +334,37 @@ class TrainerBase:
 
 class StandardTrainer(TrainerBase):
     """The one-optimizer trainer of nets called as ``model(batch, train,
-    generator) -> logits`` (the MIL baselines; reference
-    ``engine/{abmil,transmil}.py``): one ``build_optimizer`` chain over every
-    parameter, the task loss, and a state of model, optimizer and epoch."""
+    generator)``, which return the logits or a dict holding them under
+    ``"logits"`` (the MIL, genomic and fusion baselines; reference
+    ``engine/{abmil,transmil,snn,snnm,mcat,...}.py``): one
+    ``build_optimizer`` chain over every parameter (one update per
+    ``OPTIM.GRAD_ACCUM`` steps), the task loss plus :meth:`extra_loss`, and
+    a state of model (with its buffers: HFB's BatchNorm statistics),
+    optimizer and epoch."""
+
+    #: the registered model builder (``imp_torch.models.build_model``) of the net
+    MODEL_NAME = ""
+
+    def build_kwargs(self) -> Dict:
+        """The builder's arguments beyond cfg, classes, device and generator."""
+        return {}
 
     def build_network(self) -> nn.Module:
-        """The net on ``self.device``, initialised from ``cfg.SEED``."""
-        raise NotImplementedError
+        """The net ``MODEL_NAME`` on ``self.device``, initialised from
+        ``cfg.SEED``."""
+        cfg = self.cfg
+        return build_model(
+            self.MODEL_NAME, cfg=cfg,
+            num_classes=survival_num_classes(cfg.TASK.NAME, self.num_classes),
+            device=self.device, generator=torch.Generator().manual_seed(max(cfg.SEED, 0)),
+            **self.build_kwargs(),
+        )
+
+    def extra_loss(self, out, batch: Dict[str, torch.Tensor]):
+        """An auxiliary loss on the net's output (CMTA's alignment)."""
+        return 0.0
 
     def check_cfg(self, cfg):
-        if cfg.OPTIM.GRAD_ACCUM > 1:
-            raise deferred("OPTIM.GRAD_ACCUM > 1", 6)
         if cfg.MODEL.INIT_WEIGHTS:
             raise deferred("MODEL.INIT_WEIGHTS", 4)
         if cfg.TRAINER.PREC != "fp32":
@@ -352,17 +374,16 @@ class StandardTrainer(TrainerBase):
 
     def build_model(self):
         self.model = self.build_network()
-        # the JAX trainer's param_labels (frozen subtrees) and mutable
-        # collections (BatchNorm statistics) belong to nets of item 6
-        if any(isinstance(m, nn.modules.batchnorm._BatchNorm) for m in self.model.modules()):
-            raise deferred("nets with mutable state (batch statistics)", 6)
         print(f"# params: {count_num_param(self.model):,}")
+        accum = max(1, self.cfg.OPTIM.GRAD_ACCUM)
         self.optimizer = build_optimizer(self.cfg.OPTIM, list(self.model.parameters()),
-                                         max(1, len(self.train_loader)))
+                                         max(1, -(-len(self.train_loader) // accum)),
+                                         grad_accum=accum)
 
     def train_step(self, db: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        logits = self.model(db, train=True, generator=self.generator)
-        loss = self.task_loss(logits, db)
+        out = self.model(db, train=True, generator=self.generator)
+        logits = out["logits"] if isinstance(out, dict) else out
+        loss = self.task_loss(logits, db) + self.extra_loss(out, db)
         self.optimizer.step(torch.autograd.grad(loss, self.optimizer.params, allow_unused=True))
         return {"loss": loss.detach()}
 
@@ -377,3 +398,11 @@ class StandardTrainer(TrainerBase):
     def load_state_dict(self, state: Dict) -> None:
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["opt_state"])
+
+
+class OmicTrainer(StandardTrainer):
+    """A ``StandardTrainer`` whose net reads the omics: its builder takes the
+    dataset's gene count (SNN, SNNM and the fusion baselines)."""
+
+    def build_kwargs(self) -> Dict:
+        return {"omic_dim": self.dm.omic_dim or 1000}

@@ -1,6 +1,8 @@
 """Model registry — the PyTorch counterpart of ``imp_tpu/models/__init__.py``.
 Same config names; the port registers ``umeml``, ``umeml_gan``,
-``transmil`` and ``abmil``.  Every builder turns TF32 off, initialises the
+``transmil``, ``abmil``, ``snn`` and ``snnm`` here, and the fusion nets
+``mcat``, ``cmta``, ``porpoise`` and ``hfb`` with their trainers
+(``engine/fusion_trainers.py``).  Every builder turns TF32 off, initialises the
 model from a ``torch.Generator`` (default: seed 0) without touching the
 caller's RNG, and returns it on ``device`` in eval mode.  The builders of
 the models with Nyström TransLayers take ``pinv_mode`` (``"chain"``, the
@@ -16,7 +18,7 @@ from torch import nn
 
 from ..ops.attention import init_parameters_
 from ..utils.registry import Registry
-from .nets import ABMIL_NET, TransMIL_NET
+from .nets import ABMIL_NET, SNN_NET, SNNM_NET, TransMIL_NET
 from .umeml import UMEML
 from .umeml_gan import UMEML_GAN
 
@@ -40,7 +42,7 @@ def resolve_attention(value: str) -> str:
     return _ATTENTION[value]
 
 
-def _build(make: Callable[[], nn.Module], device, generator: Optional[torch.Generator]):
+def build_module(make: Callable[[], nn.Module], device, generator: Optional[torch.Generator]):
     """``make()`` initialised from ``generator`` on ``device``, in eval mode."""
     # fp32 means fp32: cuDNN's TF32 default would run the depthwise convs
     # (the k=33 residual, PPEG's 7/5/3) in TF32, and the Newton-Schulz
@@ -77,7 +79,7 @@ def build_umeml(
 ) -> UMEML:
     """UMEML from ``cfg`` over ``omic_dim`` genes (it has no gene groups)."""
     _check_proto_init(cfg)
-    return _build(
+    return build_module(
         lambda: UMEML(
             num_classes=num_classes,
             feat_dim=cfg.DATASET.PATH.DIM,
@@ -105,7 +107,7 @@ def build_umeml_gan(
 ) -> UMEML_GAN:
     """UMEML_GAN from ``cfg`` and the gene groups."""
     _check_proto_init(cfg)
-    return _build(
+    return build_module(
         lambda: UMEML_GAN(
             num_classes=num_classes,
             gene_group_indexes=gene_group_indexes,
@@ -131,7 +133,7 @@ def build_transmil(cfg, num_classes: int, device="cuda",
                    pinv_mode: str = "chain") -> TransMIL_NET:
     """TransMIL over ``DATASET.PATH.DIM`` features, its TransLayers by
     ``TPU.ATTENTION``."""
-    return _build(
+    return build_module(
         lambda: TransMIL_NET(num_classes, cfg.DATASET.PATH.DIM,
                              attention=resolve_attention(cfg.TPU.ATTENTION),
                              pinv_mode=pinv_mode),
@@ -144,8 +146,30 @@ def build_abmil(cfg, num_classes: int, device="cuda",
                 generator: Optional[torch.Generator] = None) -> ABMIL_NET:
     """ABMIL over ``DATASET.PATH.DIM`` features at ``MODEL.SIZE`` (dropout
     0.25, as the JAX trainer builds it)."""
-    return _build(
+    return build_module(
         lambda: ABMIL_NET(num_classes, cfg.DATASET.PATH.DIM, cfg.MODEL.SIZE),
+        device, generator,
+    )
+
+
+@MODEL_REGISTRY.register_as("snn")
+def build_snn(cfg, num_classes: int, omic_dim: int, device="cuda",
+              generator: Optional[torch.Generator] = None) -> SNN_NET:
+    """SNN over the first min(1000, ``omic_dim``) genes at ``MODEL.SIZE``
+    and ``MODEL.DROPOUT``."""
+    return build_module(
+        lambda: SNN_NET(num_classes, min(1000, omic_dim), float(cfg.MODEL.DROPOUT),
+                        cfg.MODEL.SIZE),
+        device, generator,
+    )
+
+
+@MODEL_REGISTRY.register_as("snnm")
+def build_snnm(cfg, num_classes: int, omic_dim: int, device="cuda",
+               generator: Optional[torch.Generator] = None) -> SNNM_NET:
+    """SNN_M over chunks of 50 genes at ``MODEL.SIZE`` and ``MODEL.DROPOUT``."""
+    return build_module(
+        lambda: SNNM_NET(num_classes, 50, float(cfg.MODEL.DROPOUT), cfg.MODEL.SIZE),
         device, generator,
     )
 

@@ -118,7 +118,8 @@ def masked_fill_neg(scores: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def moore_penrose_pinv(x: torch.Tensor, iters: int = 6, mode: str = "chain") -> torch.Tensor:
-    """Iterative Moore-Penrose pseudo-inverse in float32.
+    """Iterative Moore-Penrose pseudo-inverse in float32 (float64 for a
+    float64 input).
 
     The normaliser is the *global* max over all batch and head dims (the
     reference's ``torch.max`` with no dim), reproduced faithfully.  The
@@ -132,7 +133,7 @@ def moore_penrose_pinv(x: torch.Tensor, iters: int = 6, mode: str = "chain") -> 
     if mode not in PINV_MODES:
         raise ValueError(f"pinv mode {mode!r} not in {PINV_MODES}")
     in_dtype = x.dtype
-    x = x.float()
+    x = x.to(torch.promote_types(in_dtype, torch.float32))  # a float64 replay stays float64
     m = x.shape[-1]
     if mode == "fused" and x.dim() >= 2 and x.shape[-2] == m and m % 128 == 0 and m <= 512:
         return pinv_newton_schulz(x, iters).to(in_dtype)
@@ -225,15 +226,18 @@ def _merge_heads(t: torch.Tensor) -> torch.Tensor:
 
 class MultiheadAttention(nn.Module):
     """Batch-first MHA with optional raw-score output (reference
-    ``ops/blocks.py:346-527`` + ``multi_head_attention_forward``)."""
+    ``ops/blocks.py:346-527`` + ``multi_head_attention_forward``).  In a
+    training forward (a ``generator``), ``dropout`` drops the softmax
+    weights before they weigh the values, as the JAX module does."""
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(
                 f"embed_dim {embed_dim} must be divisible by num_heads {num_heads}"
             )
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(embed_dim, 3 * embed_dim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
@@ -252,6 +256,7 @@ class MultiheadAttention(nn.Module):
         value: torch.Tensor,  # [B, S, E]
         key_valid: Optional[torch.Tensor] = None,  # [B, S] bool, True = attend
         need_raw: bool = True,
+        generator: Optional[torch.Generator] = None,
     ):
         e, h = self.embed_dim, self.num_heads
         w, bias = self.in_proj_weight, self.in_proj_bias
@@ -260,6 +265,9 @@ class MultiheadAttention(nn.Module):
         v = value @ w[:, 2 * e :] + bias[2 * e :]
         q, k, v = _split_heads(q, h), _split_heads(k, h), _split_heads(v, h)
         out, weights, raw = dense_attention(q, k, v, key_valid, scale=(e // h) ** -0.5)
+        if self.dropout > 0.0 and generator is not None:
+            weights = dropout(weights, self.dropout, generator)
+            out = torch.einsum("bhls,bhsd->bhld", weights, v)
         out = self.out_proj(_merge_heads(out))
         if need_raw:
             return out, raw  # [B, H, L, S]

@@ -51,15 +51,21 @@ NEG_INF = -1e30  # the additive bias of a masked key
 HEAD_DIMS = (32, 64)  # the head widths the kernels are built for
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or in float64 if it is (a float64 replay of a step
+    through the plain versions stays float64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def flash_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K1: (O [B,H,Nq,d], lse [B,H,Nq])."""
-    s = q.float() @ k.float().transpose(-1, -2) + bias.float()[:, None, None, :]
+    s = _wide(q) @ _wide(k).transpose(-1, -2) + _wide(bias)[:, None, None, :]
     # softmax, not exp(s - lse): on a fully masked row lse = -1e30 + log(Nk)
     # rounds to -1e30, and the weights must still sum to one (the kernel's
     # acc / l), giving the mean of V
-    o = torch.softmax(s, dim=-1) @ v.float()
+    o = torch.softmax(s, dim=-1) @ _wide(v)
     return o, torch.logsumexp(s, dim=-1)
 
 
@@ -67,12 +73,12 @@ def _bwd_p_ds(q, k, v, bias, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor
     """P = exp(s - lse) and dS = P (dP - delta), the math of the off-TPU
     branch of ``imp_tpu``'s ``flash_attention_partial_bwd``.  Not
     differentiable: it works in place on its two [B, H, Nq, Nk] buffers."""
-    p = q.float() @ k.float().transpose(-1, -2)
-    p += bias.float()[:, None, None, :]
-    p -= lse.float()[..., None]
+    p = _wide(q) @ _wide(k).transpose(-1, -2)
+    p += _wide(bias)[:, None, None, :]
+    p -= _wide(lse)[..., None]
     p.exp_()
-    ds = do.float() @ v.float().transpose(-1, -2)  # dP
-    ds -= delta.float()[..., None]
+    ds = _wide(do) @ _wide(v).transpose(-1, -2)  # dP
+    ds -= _wide(delta)[..., None]
     ds *= p
     return p, ds
 
@@ -88,13 +94,13 @@ def flash_attention_bwd_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2 and K3 together: (dq, dk, dv)."""
     p, ds = _bwd_p_ds(q, k, v, bias, do, lse, delta)
-    return ds @ k.float(), ds.transpose(-1, -2) @ q.float(), p.transpose(-1, -2) @ do.float()
+    return ds @ _wide(k), ds.transpose(-1, -2) @ _wide(q), p.transpose(-1, -2) @ _wide(do)
 
 
 def flash_attention_bwd_dq_reference(q, k, v, bias, do, lse, delta) -> torch.Tensor:
     """Plain PyTorch version of K2 alone: dq."""
     _, ds = _bwd_p_ds(q, k, v, bias, do, lse, delta)
-    return ds @ k.float()
+    return ds @ _wide(k)
 
 
 def flash_attention_bwd_dkv_reference(
@@ -102,7 +108,7 @@ def flash_attention_bwd_dkv_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K3 alone: (dk, dv)."""
     p, ds = _bwd_p_ds(q, k, v, bias, do, lse, delta)
-    return ds.transpose(-1, -2) @ q.float(), p.transpose(-1, -2) @ do.float()
+    return ds.transpose(-1, -2) @ _wide(q), p.transpose(-1, -2) @ _wide(do)
 
 
 def _check(q, k, v, bias) -> None:

@@ -253,8 +253,41 @@ class Chain:
         return updates, state
 
 
+class MultiSteps:
+    """``optax.MultiSteps``: gradient accumulation over ``every_k`` calls.
+    Each call folds the gradient into the running mean
+    ``acc <- (g + n·acc) / (n + 1)`` (n: the mini-step, 0 … k-1); the k-th
+    call runs the ``inner`` chain on ``acc``, returns its updates and clears
+    ``acc``; the others return None, so the parameters and the inner state
+    (moments, counts, the schedule's count) stay as they are.  Nothing is
+    flushed at an epoch's end: the accumulation carries on, and lives in the
+    state (so in a checkpoint)."""
+
+    def __init__(self, inner: Chain, every_k: int):
+        self.inner, self.every_k = inner, int(every_k)
+
+    def init(self, params):
+        return {"mini_step": 0, "gradient_step": 0, "inner": self.inner.init(params),
+                "acc": _zeros(params)}
+
+    def update(self, updates, state, params):
+        n, acc = state["mini_step"], state["acc"]
+        torch._foreach_mul_(acc, float(n))
+        torch._foreach_add_(acc, updates)
+        torch._foreach_div_(acc, float(n + 1))
+        if n < self.every_k - 1:
+            state["mini_step"] = n + 1
+            return None, state
+        out, state["inner"] = self.inner.update([a.clone() for a in acc], state["inner"], params)
+        torch._foreach_zero_(acc)
+        state["mini_step"] = 0
+        state["gradient_step"] += 1
+        return out, state
+
+
 class Optimizer:
-    """A chain bound to a list of parameters."""
+    """A chain bound to a list of parameters (a :class:`MultiSteps` chain
+    moves them only on the calls that emit an update)."""
 
     def __init__(self, params: Sequence[torch.Tensor], tx: Chain):
         self.params = list(params)
@@ -271,8 +304,14 @@ class Optimizer:
                  for g, p in zip(grads, self.params)]
         params = [p.detach() for p in self.params]
         updates, self.state = self.tx.update(grads, self.state, params)
-        torch._foreach_add_(params, updates)
+        if updates is not None:
+            torch._foreach_add_(params, updates)
         self.count += 1
+
+    @property
+    def updates(self) -> int:
+        """How many updates moved the parameters (``count`` counts calls)."""
+        return self.state["gradient_step"] if isinstance(self.tx, MultiSteps) else self.count
 
     def state_dict(self) -> Dict:
         return {"count": self.count, "state": self.state}
@@ -308,10 +347,14 @@ def build_optimizer(
     updates_per_epoch: int = 1,
     learning_rate: Union[float, Callable[[int], float], None] = None,
     decay_mask: Optional[Sequence[bool]] = None,
+    grad_accum: int = 1,
 ) -> Optimizer:
     """The optimizer ``OPTIM.NAME`` over ``params`` with the epoch schedule
     (or ``learning_rate``, a constant or a count -> lr function), coupled L2
-    restricted to ``decay_mask`` where the JAX builder applies it."""
+    restricted to ``decay_mask`` where the JAX builder applies it, and, for
+    ``grad_accum`` > 1, one update per ``grad_accum`` calls
+    (:class:`MultiSteps`; ``updates_per_epoch`` then counts updates, not
+    batches)."""
     name = optim_cfg.NAME
     wd = float(optim_cfg.WEIGHT_DECAY)
     b1, b2 = float(optim_cfg.ADAM_BETA1), float(optim_cfg.ADAM_BETA2)
@@ -342,4 +385,5 @@ def build_optimizer(
         steps += [Trace(momentum)] if momentum else []
     else:
         raise ValueError(f"Unknown optimizer: {name}")
-    return Optimizer(params, Chain(*steps, ScaleByLearningRate(lr)))
+    tx = Chain(*steps, ScaleByLearningRate(lr))
+    return Optimizer(params, MultiSteps(tx, grad_accum) if grad_accum > 1 else tx)
