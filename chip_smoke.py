@@ -113,6 +113,28 @@ Phases, each printing one JSON line (the run fails on the first error):
    against the chain, then the A/B of the two; each with
    :func:`float64_check`'s margins for the gradients float32 cannot
    resolve, the device busy time and the idle share.
+17. ``clip_vit_b16`` — the ViT-B/16 image tower at full width (12 blocks of
+   768, 12 heads, 197 tokens at 224 px; no kernel of ``csrc``: products and
+   softmax are plain PyTorch, as the JAX towers use no Pallas kernel)
+   through ``imp_torch.tools.clip_feature``'s per-slide encode loop: two
+   slides of 512 synthetic uint8 patches at batch 32, in fp32 and in bf16;
+   2 images' fp32 features against their float64 CPU replay, the bf16
+   features' cosine to the fp32 ones, images/s and the share of the compute
+   bound (:func:`vit_flops`) at batch 32, 64, 128 and 256, the loop's
+   device-busy share and the peak memory.
+18. ``clip_rn50`` — one batch of 8 through the RN50 ModifiedResNet tower at
+   224 px (random running statistics) against its float64 CPU replay.
+19. ``train_clipomic`` — ``python -m imp_torch.tools.train --trainer
+   CLIPOMIC`` on each task's ``configs/<Task>/CLIPOMIC.yaml`` for one epoch
+   at the full text width (12 blocks of 512, 8 heads, context 77,
+   vocabulary 49 408), the tower loaded from a random OpenAI-layout
+   ``MODEL.BACKBONE.CLIP_CHECKPOINT``: every frozen tensor keeps its bits,
+   every trainable one moves, the checkpoint reloads strictly.
+20. ``plip_umeml_gan`` — ``python -m imp_torch.tools.extract_prototypes`` on
+   the card over seeded prompt embeddings in the order of
+   ``prompts/prompt.json``, then MBTRAIN on UMEML_GAN.yaml's values for 2
+   epochs with ``MODEL.UMEML.PROTO_INIT plip``: the initial prototypes are
+   the file's, K4/K5 once per main step.
 ``train_step`` (phase 6) also times UMEML_GAN's batch-8 step with the fused
 mode.  The fused mode has no cfg key (JAX's ``PINV_MODE`` is a module
 global): the runs build their models fused with :func:`pinv_mode` around
@@ -122,7 +144,8 @@ chain).
 
 Then a ``kernels`` line (every ported kernel with its launches on its
 main path: serving for K1, TransMIL training for K2/K3, MBTRAIN for
-K4/K5, UMEML training for K6/K7, each with a ``cmta`` object: its launches
+K4/K5 (with ``plip_launches``, their launches in ``plip_umeml_gan``), UMEML
+training for K6/K7, each with a ``cmta`` object: its launches
 in CMTA's epoch under flash (K1-K3) or fused (K6/K7) and its times at CMTA's
 shape, K1-K3 at (1, 8, 10 001, 32), K6/K7 at (8, 128); K2 and K3 each with its own device time
 and plain version, no library call, and a ``pair`` object that times dq,
@@ -138,6 +161,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import io
 import json
 import os
 import subprocess
@@ -1382,8 +1406,6 @@ def run_trainer(argv, cls, names, log_name):
     bags, with the calls of ``cls.names`` audited; the counts are set to 0
     just before and read just after.  Returns (result, launches, records,
     seconds, log text); the log is kept under ``LOG_DIR``."""
-    import io
-
     import torch
 
     from imp_torch import kernels
@@ -2207,8 +2229,6 @@ def phase_test_new(card: str, root: str, out: str):
     checkpoint of a one-epoch ``train`` on configs/Grading/UMEML_GAN.yaml:
     the slides without omics are served with ``without_omic = 1``, the
     accuracy is reported, one importance row per slide, no K4/K5 launch."""
-    import io
-
     import torch
 
     from imp_torch import kernels
@@ -2527,6 +2547,414 @@ def phase_train_step_cmta(card: str, root: str, out: str):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phases 17-20: the CLIP towers, CLIPOMIC and the PLIP prototypes
+# ---------------------------------------------------------------------------
+
+CLIP_MODEL = "ViT-B/16"
+CLIP_SLIDES, CLIP_PATCHES, CLIP_BATCH = 2, 512, 32  # two slides of 512 patches, the CLI's batch
+CLIP_SWEEP = (32, 64, 128, 256)
+CLIP_SWEEP_IMAGES = 1024  # images timed per (precision, batch) of the sweep
+#: card fp32 features vs the same tower replayed in float64 on the CPU,
+#: max |error| over max |feature|: fp32 products (TF32 off for matmuls and
+#: cuDNN, as ``imp_torch.models.build_module`` sets) through 12 blocks of 768
+CLIP_TOL = 1e-4
+CLIP_BF16_COS = 0.99  # --prec bf16 features vs fp32, cosine per patch
+CLIP_REPLAY_IMAGES = 2
+RN_MODEL, RN_BATCH = "RN50", 8
+PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet, dense tensor cores, 700 W
+CLIPOMIC_TASKS = ("Survival", "Classification", "Grading", "Subtyping")
+PROMPTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "prompts", "prompt.json")
+PLIP_EPOCHS = 2  # plain, then GAN, the CCA epoch between
+
+
+def vit_flops(name: str = CLIP_MODEL) -> dict:
+    """Operations (2 per multiply-add) of one image through the ViT, from
+    its shapes: n = (res / patch)² + 1 tokens of width w, L blocks; the
+    patchify 2·(n-1)·p²·3·w, per block qkv 2·n·w·3w, scores and P·V
+    2·2·n²·w, out_proj 2·n·w², MLP 2·2·n·w·4w, then proj 2·w·out.  The
+    LayerNorms, softmax and QuickGELU (~0.1 % more) are left out."""
+    from imp_torch.models.clip import CLIP_CONFIGS
+
+    c = CLIP_CONFIGS[name]
+    p, w, depth = c["vision_patch_size"], c["vision_width"], c["vision_layers"]
+    n = (c["image_resolution"] // p) ** 2 + 1
+    block = 2 * n * w * 3 * w + 4 * n * n * w + 2 * n * w * w + 4 * n * w * 4 * w
+    return {"tokens": n, "width": w, "layers": depth,
+            "flops_per_image": 2 * (n - 1) * p * p * 3 * w + depth * block + 2 * w * c["embed_dim"],
+            "formula": "2(n-1)p²·3w + L·(6nw² + 4n²w + 2nw² + 16nw²) + 2w·out"}
+
+
+def float64_replay(model, x_u8):
+    """The tower's features of ``x_u8`` replayed in float64 on the CPU."""
+    import copy
+
+    import torch
+
+    from imp_torch.tools.clip_feature import device_normalize
+
+    ref = copy.deepcopy(model).to("cpu", torch.float64)
+    with torch.no_grad():
+        return ref(device_normalize(x_u8.cpu(), torch.float64))
+
+
+def rel_max_err(got, want) -> float:
+    """max |got - want| over max |want|, in float64."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@contextlib.contextmanager
+def captured(cls, name: str, grab):
+    """``grab(self, result)`` after every call of ``cls.name`` (a method
+    of ``cls``'s own) while the block runs."""
+    method = cls.__dict__[name]
+
+    def wrapper(self, *args, **kw):
+        out = method(self, *args, **kw)
+        grab(self, out)
+        return out
+
+    setattr(cls, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(cls, name, method)
+
+
+def phase_clip_vit_b16(card: str):
+    """The ViT-B/16 image tower at full width (12 blocks of width 768, 12
+    heads, 197 tokens at 224 px), random weights from SEED, through
+    ``imp_torch.tools.clip_feature``'s per-slide encode loop: two slides of
+    512 synthetic uint8 patches at batch 32, in fp32 and in bf16 (the
+    tool's ``--prec bf16``); 2 images' fp32 features held to their float64
+    CPU replay (CLIP_TOL) and the bf16 features' cosine to the fp32 ones
+    (CLIP_BF16_COS); then images/s and the share of the compute bound at
+    batch 32-256, the loop's device-busy share and the peak memory."""
+    import torch
+
+    from imp_torch import kernels
+    from imp_torch.models.clip import CLIP_CONFIGS
+    from imp_torch.tools.clip_feature import build_encoder, encode_slide
+
+    size, dim = (CLIP_CONFIGS[CLIP_MODEL][k] for k in ("image_resolution", "embed_dim"))
+    patches = np.random.default_rng(SEED).integers(
+        0, 256, size=(CLIP_SLIDES * CLIP_PATCHES, size, size, 3), dtype=np.uint8)
+    towers, encoders = {}, {}
+    for prec in ("fp32", "bf16"):  # the same weights, cast for bf16
+        towers[prec], encoders[prec] = build_encoder(
+            CLIP_MODEL, DEVICE, prec, generator=torch.Generator().manual_seed(SEED))
+    x = torch.from_numpy(patches[:CLIP_REPLAY_IMAGES]).to(DEVICE)
+    replay_err = rel_max_err(encoders["fp32"](x).cpu(), float64_replay(towers["fp32"], x))
+
+    def slide(prec, s):
+        items = list(range(s * CLIP_PATCHES, (s + 1) * CLIP_PATCHES))
+        return encode_slide(encoders[prec], lambda i: patches[i], items, CLIP_BATCH, size, DEVICE)
+
+    kernels.reset_launches()
+    loop, feats = {}, {}
+    for prec in ("fp32", "bf16"):
+        slide(prec, 0)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        feats[prec] = np.concatenate([slide(prec, s) for s in range(CLIP_SLIDES)])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy = device_busy_ms(lambda prec=prec: slide(prec, 1), iters=1)
+        slide_ms = wall / CLIP_SLIDES * 1e3
+        loop[prec] = {"images": len(feats[prec]), "seconds": wall,
+                      "images_per_s": len(feats[prec]) / wall, "slide_ms": slide_ms,
+                      "device_busy_ms_per_slide": busy,
+                      "device_busy_share": None if busy is None else busy / slide_ms,
+                      "peak_device_gib": peak}
+    launches = only_launched(kernels.launches())
+    direct = encoders["fp32"](torch.from_numpy(patches[:CLIP_BATCH]).to(DEVICE)).cpu().numpy()
+    f32, f16 = feats["fp32"], feats["bf16"]
+    cos = (f32 * f16).sum(1) / (np.linalg.norm(f32, axis=1) * np.linalg.norm(f16, axis=1))
+    checks = {"replay_images": CLIP_REPLAY_IMAGES, "replay_rel_err": replay_err,
+              "replay_tol": CLIP_TOL, "loop_vs_direct_rel_err": rel_max_err(f32[:CLIP_BATCH], direct),
+              "bf16_cos_min": float(cos.min()), "bf16_cos_mean": float(cos.mean()),
+              "bf16_cos_floor": CLIP_BF16_COS, "shape": list(f32.shape),
+              "finite": bool(np.isfinite(f32).all() and np.isfinite(f16).all())}
+
+    flops = vit_flops()
+    peaks = {"fp32": PEAK_FP32_FLOPS, "bf16": PEAK_BF16_FLOPS}
+    sweep = {}
+    for prec in ("fp32", "bf16"):
+        weight_bytes = sum(p.numel() * p.element_size() for p in towers[prec].parameters())
+        for bs in CLIP_SWEEP:
+            xb = torch.from_numpy(patches[:bs]).to(DEVICE)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: encoders[prec](xb), max(2, CLIP_SWEEP_IMAGES // bs), warmup=2)
+            ops_ms = bs * flops["flops_per_image"] / peaks[prec] * 1e3
+            bytes_ms = (weight_bytes + xb.numel() + bs * dim * 4) / PEAK_BYTES * 1e3
+            bound = max(ops_ms, bytes_ms)
+            sweep[f"{prec}_b{bs}"] = {
+                "batch": bs, "ms": ms, "images_per_s": bs / (ms / 1e3), "bound_ms": bound,
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "share_of_bound": bound / ms,
+                "achieved_tflops": bs * flops["flops_per_image"] / ms / 1e9,
+                "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+    busy32 = device_busy_ms(lambda: encoders["fp32"](torch.from_numpy(patches[:CLIP_BATCH])
+                                                     .to(DEVICE)), iters=3)
+    where = {}  # where the device time of one batch of 256 goes, by kernel
+    for prec in ("fp32", "bf16"):
+        xb = torch.from_numpy(patches[:CLIP_SWEEP[-1]]).to(DEVICE)
+        rows = sorted(device_rows(profiled(lambda: encoders[prec](xb), 3)),
+                      key=lambda e: -e.self_device_time_total)
+        total = sum(e.self_device_time_total for e in rows) or 1.0
+        where[prec] = [{"kernel": e.key[:120], "ms": e.self_device_time_total / 3 / 1e3,
+                        "share": e.self_device_time_total / total} for e in rows[:8]]
+    row = {"phase": "clip_vit_b16", "card": card, "model": CLIP_MODEL,
+           "entry": "imp_torch.tools.clip_feature.encode_slide", "slides": CLIP_SLIDES,
+           "patches_per_slide": CLIP_PATCHES, "batch": CLIP_BATCH, "image": size,
+           "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+           "bound": {**flops, "fp32_peak_flops": PEAK_FP32_FLOPS,
+                     "bf16_peak_flops": PEAK_BF16_FLOPS,
+                     "fp32_images_per_s": PEAK_FP32_FLOPS / flops["flops_per_image"],
+                     "bf16_images_per_s": PEAK_BF16_FLOPS / flops["flops_per_image"]},
+           "checks": checks, "loop": loop, "sweep": sweep,
+           "fp32_b32_device_busy_ms": busy32, "top_kernels_b256": where, "launches": launches}
+    emit(row)
+    require(replay_err <= CLIP_TOL, f"ViT-B/16 fp32 vs its float64 replay: {checks}")
+    require(checks["finite"] and f32.shape == (CLIP_SLIDES * CLIP_PATCHES, dim), checks)
+    require(checks["loop_vs_direct_rel_err"] <= CLIP_TOL, f"encode loop vs direct: {checks}")
+    require(checks["bf16_cos_min"] >= CLIP_BF16_COS, f"bf16 vs fp32 features: {checks}")
+    require(not launches, f"the CLIP tower launched a ported kernel: {launches}")
+    del towers, encoders
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_clip_rn50(card: str):
+    """One batch of 8 through the RN50 ModifiedResNet tower at 224 px
+    (random weights and running statistics from SEED) on the card, held to
+    its float64 CPU replay (CLIP_TOL)."""
+    import torch
+
+    from imp_torch.models import build_module
+    from imp_torch.models.clip import CLIP_CONFIGS, FrozenBatchNorm2d, build_vision_tower
+    from imp_torch.tools.clip_feature import device_normalize
+
+    model = build_module(lambda: build_vision_tower(RN_MODEL), DEVICE,
+                         torch.Generator().manual_seed(SEED))
+    g = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():  # running statistics away from 0 and 1, so that the check reads them
+        for m in model.modules():
+            if isinstance(m, FrozenBatchNorm2d):
+                m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=g))
+    size = CLIP_CONFIGS[RN_MODEL]["image_resolution"]
+    x = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+        0, 256, size=(RN_BATCH, size, size, 3), dtype=np.uint8)).to(DEVICE)
+
+    def encode():
+        with torch.no_grad():
+            return model(device_normalize(x, torch.float32))
+
+    got = encode()
+    err = rel_max_err(got.cpu(), float64_replay(model, x))
+    row = {"phase": "clip_rn50", "card": card, "model": RN_MODEL, "batch": RN_BATCH,
+           "image": size, "shape": list(got.shape), "replay_rel_err": err, "replay_tol": CLIP_TOL,
+           "finite": bool(torch.isfinite(got).all()), "ms": cuda_ms(encode, 10),
+           "cudnn_tf32": torch.backends.cudnn.allow_tf32}
+    emit(row)
+    require(row["finite"] and err <= CLIP_TOL, f"RN50 vs its float64 replay: {row}")
+    del model
+    torch.cuda.empty_cache()
+    return row
+
+
+def openai_text_state(seed: int) -> dict:
+    """A random OpenAI CLIP ``state_dict`` of ViT-B/16's text tower (12
+    blocks of width 512, context 77, vocabulary 49 408), float32, from
+    ``seed``: what ``MODEL.BACKBONE.CLIP_CHECKPOINT`` names."""
+    import torch
+
+    from imp_torch.models.clip import CLIP_CONFIGS
+
+    c = CLIP_CONFIGS[CLIP_MODEL]
+    w = c["transformer_width"]
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, std):
+        return torch.randn(*shape, generator=g) * std
+
+    state = {"token_embedding.weight": r(c["vocab_size"], w, std=0.02),
+             "positional_embedding": r(c["context_length"], w, std=0.01),
+             "text_projection": r(w, c["embed_dim"], std=w**-0.5),
+             "ln_final.weight": torch.ones(w), "ln_final.bias": torch.zeros(w)}
+    for i in range(c["transformer_layers"]):
+        p = f"transformer.resblocks.{i}."
+        state.update({
+            p + "ln_1.weight": torch.ones(w), p + "ln_1.bias": torch.zeros(w),
+            p + "attn.in_proj_weight": r(3 * w, w, std=w**-0.5),
+            p + "attn.in_proj_bias": torch.zeros(3 * w),
+            p + "attn.out_proj.weight": r(w, w, std=w**-0.5), p + "attn.out_proj.bias": torch.zeros(w),
+            p + "ln_2.weight": torch.ones(w), p + "ln_2.bias": torch.zeros(w),
+            p + "mlp.c_fc.weight": r(4 * w, w, std=w**-0.5), p + "mlp.c_fc.bias": torch.zeros(4 * w),
+            p + "mlp.c_proj.weight": r(w, 4 * w, std=(4 * w) ** -0.5),
+            p + "mlp.c_proj.bias": torch.zeros(w)})
+    return state
+
+
+def phase_train_clipomic(card: str, root: str, out: str):
+    """CLIPOMIC at the full text width (12 blocks of 512, 8 heads, context
+    77, vocabulary 49 408) for one epoch through the CLI on each task's
+    config, its text tower loaded from a random OpenAI-layout checkpoint
+    (``MODEL.BACKBONE.CLIP_CHECKPOINT``): the tower holds the checkpoint's
+    values after the build, every frozen tensor keeps its bits through the
+    epoch and every trainable one moves, the metric line, a strict reload
+    of the epoch's checkpoint (frozen tensors included), no kernel launch."""
+    import shutil
+
+    import torch
+
+    from imp_torch.convert import convert_torch_clip_state
+    from imp_torch.engine.baselines import CLIPOMIC
+    from imp_torch.engine.trainer import StandardTrainer
+    from imp_torch.models import build_model
+
+    os.makedirs(out, exist_ok=True)
+    ckpt = os.path.join(out, "clip_text.pt")
+    state = openai_text_state(SEED)
+    torch.save(state, ckpt)
+    _, txt = convert_torch_clip_state(state, CLIP_MODEL)
+    del state
+    runs, seconds_all = [], 0.0
+    for task in CLIPOMIC_TASKS:
+        run_out = os.path.join(out, task)
+        init, steps = {}, []
+
+        def grab(_trainer, net):
+            init.update({k: v.detach().clone() for k, v in net.state_dict().items()})
+
+        with captured(CLIPOMIC, "build_network", grab), watched_steps(steps):
+            result, counts, record, seconds, log = run_trainer(
+                zoo_argv(root, run_out, "CLIPOMIC", task, "MODEL.BACKBONE.CLIP_CHECKPOINT", ckpt),
+                StandardTrainer, ("train_step",), f"chip_smoke_clipomic_{task}_log.txt")
+        seconds_all += seconds
+        trainer = steps[-1][0]
+        labels = trainer.param_labels()
+        final = trainer.model.state_dict()
+        frozen = [k for k, lab in labels.items() if lab == "frozen"]
+        trainable = [k for k, lab in labels.items() if lab == "train"]
+        loaded = all(torch.equal(init["genomic_backbone." + k], v.to(DEVICE)) for k, v in txt.items())
+        frozen_kept = [k for k in frozen if torch.equal(final[k], init[k])]
+        moved = [k for k in trainable if not torch.equal(final[k], init[k])]
+        model = build_model("clipomic", cfg=trainer.cfg,
+                            num_classes=trainer.model.classifier.out_features, device=DEVICE,
+                            **trainer.build_kwargs())
+        ckpt_name, ckpt_epoch = reload_last(run_out, model)
+        reloaded = model.state_dict()
+        losses = [float(m["loss"]) for _, _, _, m in record]
+        metric = "C-Index" if task == "Survival" else "accuracy"
+        lines = [line for line in log.splitlines() if line.startswith(f"* {metric}:")]
+        row = {"task": task, "config": f"configs/{task}/CLIPOMIC.yaml",
+               "text": {k: int(trainer.cfg.MODEL.BACKBONE[f"TEXT_{k.upper()}"])
+                        for k in ("width", "heads", "layers", "vocab", "context")},
+               "params": sum(p.numel() for p in trainer.model.parameters()),
+               "frozen_params": sum(final[k].numel() for k in frozen),
+               "trainable_tensors": len(trainer.optimizer.params),
+               "train_steps": len(steps), "launches": only_launched(counts),
+               "checkpoint_loaded": loaded, "frozen_tensors": len(frozen),
+               "frozen_same_bits": len(frozen_kept), "trainable_tensors_moved": len(moved),
+               "losses_finite": bool(np.isfinite(losses).all()), "last_loss": losses[-1],
+               "metric_lines": lines, "result": result, "checkpoint": ckpt_name,
+               "checkpoint_epoch": ckpt_epoch,
+               "reload_frozen_same_bits": all(torch.equal(reloaded[k], init[k]) for k in frozen),
+               "seconds": seconds}
+        require(loaded and len(frozen_kept) == len(frozen) > 0 and len(moved) == len(trainable),
+                f"CLIPOMIC's frozen text tower at {task}: {row}")
+        require(len(steps) > 0 and row["losses_finite"] and len(lines) >= 2
+                and result is not None and np.isfinite(result) and ckpt_epoch == 1
+                and row["reload_frozen_same_bits"], f"CLIPOMIC at {task}: {row}")
+        require(not row["launches"], f"kernels launched by CLIPOMIC: {row}")
+        runs.append(row)
+        del trainer, model, steps, init, final, reloaded
+        shutil.rmtree(run_out)  # two checkpoints of 0.25 GB each
+        torch.cuda.empty_cache()
+    row = {"phase": "train_clipomic", "card": card, "entry": "python -m imp_torch.tools.train",
+           "slides": len(TRAIN_LENGTHS), "epochs": 1, "runs": runs, "seconds": seconds_all}
+    emit(row)
+    return row
+
+
+def phase_plip_umeml_gan(card: str, root: str, out: str):
+    """PLIP prototypes into UMEML_GAN: ``python -m
+    imp_torch.tools.extract_prototypes`` on the card over seeded [33, 512]
+    prompt embeddings in the row order of prompts/prompt.json (6 categories),
+    then MBTRAIN on UMEML_GAN.yaml's values (hidden 256, 6 prototypes) for 2
+    epochs with ``MODEL.UMEML.PROTO_INIT plip``: the model's initial
+    prototypes equal the ``.npy`` file, K4/K5 launch once per main step."""
+    import json
+
+    import torch
+
+    from imp_torch.engine.mbtrain import MBTRAIN
+    from imp_torch.tools import extract_prototypes
+
+    os.makedirs(out, exist_ok=True)
+    with open(PROMPTS) as f:
+        counts_per_category = [len(v) for v in json.load(f).values()]
+    emb = np.random.default_rng(SEED).standard_normal((sum(counts_per_category), 512),
+                                                      dtype=np.float32)
+    emb_path, proto_path = os.path.join(out, "plip_embeddings.npy"), os.path.join(
+        out, "prototypes_plip.npy")
+    np.save(emb_path, emb)
+    console = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(console):
+        protos = extract_prototypes.main([
+            "--prompts", PROMPTS, "--embeddings", emb_path, "--out", proto_path,
+            "--target-dim", str(FLAGSHIP["MODEL.HIDDEN_DIM"]), "--device", DEVICE])
+    ae_seconds = time.perf_counter() - t0
+    require(protos.shape == (1, len(counts_per_category), FLAGSHIP["MODEL.HIDDEN_DIM"])
+            and np.isfinite(protos).all(), f"PLIP prototypes {protos.shape}")
+
+    init = {}
+    argv = ["--root", root, "--seed", "1", "--trainer", "MBTRAIN", "--output-dir", out,
+            "--device", DEVICE] + flagship_opts(**{
+                "OPTIM.MAX_EPOCH": PLIP_EPOCHS, "TRAIN.CURRICULUM.GAN_START_EPOCH": 1,
+                "MODEL.UMEML.PROTO_INIT": "plip"})
+    with captured(MBTRAIN, "build_model",
+                  lambda self, _: init.update(p_proto=self.model.p_proto.detach().cpu().clone())):
+        result, counts, record, seconds, log = run_trainer(
+            argv, MBTRAIN, ("train_step", "run_epoch_cca", "test"),
+            "chip_smoke_plip_umeml_gan_log.txt")
+    steps = [r for r in record if r[0] == "train_step"]
+    others = [r for r in record if r[0] != "train_step"]
+    metrics = [{k: float(v) for k, v in m.items()} for _, _, _, m in steps]
+    cindex = [line for line in log.splitlines() if line.startswith("* cindex:")]
+    row = {"phase": "plip_umeml_gan", "card": card,
+           "entry": "python -m imp_torch.tools.extract_prototypes; python -m imp_torch.tools.train",
+           "prompts": sum(counts_per_category), "categories": len(counts_per_category),
+           "prototypes_shape": list(protos.shape), "extract_seconds": ae_seconds,
+           "ae_log": console.getvalue().splitlines()[-2:],
+           "initial_prototypes_equal_npy": bool(np.array_equal(init["p_proto"].numpy(), protos)),
+           "epochs": PLIP_EPOCHS, "main_steps": len(steps),
+           "gan_steps": sum("loss_gen" in m for m in metrics), "launches": counts,
+           "K4_K5_once_per_main_step": all(d["modularity_deg"] == d["modularity_combined"] == 1
+                                           for _, d, _, _ in steps),
+           "K4_K5_outside_main_steps": sum(d["modularity_deg"] + d["modularity_combined"]
+                                           for _, d, _, _ in others),
+           "losses_finite": all(np.isfinite(list(m.values())).all() for m in metrics),
+           "cindex_lines": cindex, "result_cindex": result, "seconds": seconds,
+           "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit(row)
+    require(row["initial_prototypes_equal_npy"], f"PLIP prototypes did not reach UMEML_GAN: {row}")
+    require(len(steps) > 0 and row["K4_K5_once_per_main_step"]
+            and counts["modularity_deg"] == counts["modularity_combined"] == len(steps)
+            and row["K4_K5_outside_main_steps"] == 0, f"K4/K5 on the PLIP run: {row}")
+    require(row["losses_finite"] and row["gan_steps"] > 0 and result is not None
+            and len(cindex) >= PLIP_EPOCHS + 1, row)
+    return row, counts
+
+
+
 def main() -> int:
     import torch
 
@@ -2593,6 +3021,11 @@ def main() -> int:
                                        os.path.join(tmp, "cmta_nystrom"), attention="auto")
         clocked("train_step_cmta", phase_train_step_cmta, card, root,
                 os.path.join(tmp, "cmta_step"))
+        clocked("clip_vit_b16", phase_clip_vit_b16, card)
+        clocked("clip_rn50", phase_clip_rn50, card)
+        clocked("train_clipomic", phase_train_clipomic, card, root, os.path.join(tmp, "clipomic"))
+        _, plip_counts = clocked("plip_umeml_gan", phase_plip_umeml_gan, card, root,
+                                 os.path.join(tmp, "plip"))
     emit({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t0})
 
     def cmta_entry(name):
@@ -2616,6 +3049,7 @@ def main() -> int:
         main = mrows[(name, MOD_MAIN_SHAPE)]
         return {
             "name": name, **KERNEL_INFO[name], "launches": train_counts[name],
+            "plip_launches": plip_counts[name],
             "max_abs_err": max(r["max_abs_err"] for (k, _), r in mrows.items() if k == name),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,

@@ -1,9 +1,10 @@
 """Carry weights from the JAX package's flax trees to the port.
 
 :func:`umeml_gan_state_dict` (UMEML_GAN), :func:`umeml_state_dict` (UMEML),
-:func:`mil_state_dict` (``TransMIL_NET``, ``ABMIL_NET``) and
+:func:`mil_state_dict` (``TransMIL_NET``, ``ABMIL_NET``),
 :func:`zoo_state_dict` (``FusionNet`` over MCAT, CMTA, Porpoise or HFB,
-``SNN_NET``, ``SNNM_NET``) take a flax variable tree flattened to
+``SNN_NET``, ``SNNM_NET``, ``CLIPOMIC_NET``) and :func:`clip_state_dict`
+(the CLIP towers) take a flax variable tree flattened to
 ``"params/path_net/kernel"``-style keys with numpy values (flatten it with
 flax on the JAX side: this package needs no flax) and return the port's
 ``state_dict``:
@@ -12,7 +13,10 @@ flax on the JAX side: this package needs no flax) and return the port's
   ``nn.Linear`` weight (``[out, in]``);
 * ``LayerNorm`` ``scale`` becomes ``weight``; flax's auto-named
   ``LayerNorm_0`` inside a TransLayer is the port's ``norm``;
-* list members ``name_i`` become ``name.i`` (``nn.ModuleList``);
+* list members ``name_i`` become ``name.i`` (``nn.ModuleList``: also
+  the CLIP towers' ``resblocks_i`` and ``layer1_0`` …);
+* a 4-D conv ``kernel`` (flax HWIO) becomes an OIHW ``weight`` (the
+  ModifiedResNet's convolutions; the ViT's ``conv1_kernel`` stays HWIO);
 * a tree with ``mm/encoder1`` is a model with bilinear fusion, whose
   ``mm/linear_*`` and ``mm/encoder*`` become ``mm.*`` by the rules above;
 * the zoo's auto-named Linears: ``TorchLinear_0`` (SNN/Reg blocks,
@@ -24,7 +28,12 @@ flax on the JAX side: this package needs no flax) and return the port's
   (``[e, 3e]`` in both), ``res_conv``, ``p_proto``, the encoder tokens and
   ``bottle_tokens`` carry over as they are, and so do TransMIL's
   ``cls_token``, its PPEG convs (``pos_layer/proj{,1,2}_{kernel,bias}``) and
-  its final ``mil/LayerNorm_0`` (the port's ``mil.norm``).
+  its final ``mil/LayerNorm_0`` (the port's ``mil.norm``), and the CLIP
+  towers' packed ``in_proj_weight`` (``[d, 3d]``), embeddings and
+  projections.
+
+:func:`convert_torch_clip_state` reads an OpenAI CLIP ``state_dict``
+instead (the layout of ``clip/model.py``), into the same port towers.
 
 Any key left over or missing in either direction, or a shape that does not
 fit, raises: the expected keys come from a model built (on the meta device)
@@ -33,13 +42,14 @@ at the widths the tree itself implies.
 
 from __future__ import annotations
 
+import math
 import re
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-_LIST_MEMBER = re.compile(r"^(proto_g_blocks|omic_encoder|encoders)_(\d+)$")
+_LIST_MEMBER = re.compile(r"^(proto_g_blocks|omic_encoder|encoders|resblocks|layer[1-4])_(\d+)$")
 _AUTO_NAMED = {"LayerNorm_0": "norm", "TorchLinear_0": "fc", "TorchLinear_1": "score",
                "MaxLinear_0": "fc"}
 _BATCH_STATS = {"mean": "running_mean", "var": "running_var"}
@@ -147,10 +157,13 @@ def _zoo_expected(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Size]:
     widths ``flat`` implies: a ``fusion_module`` subtree is a ``FusionNet``
     whose module is told by its first layer's name (MCAT ``wsi_net``, CMTA
     ``pathomics_fc_0``, Porpoise ``fc_h``, HFB ``encoder_gene``), the
-    fusion by ``mm``'s keys, the sizes by layer widths; otherwise the
-    ``backbone`` is SNN_M's (it has ``attention_net``) or SNN's."""
+    fusion by ``mm``'s keys, the sizes by layer widths; a
+    ``genomic_backbone`` is CLIPOMIC's (the head count changes no shape:
+    one stands in); otherwise the ``backbone`` is SNN_M's (it has
+    ``attention_net``) or SNN's."""
     from .engine.fusion_trainers import FusionNet
     from .models import fusion as F
+    from .models.clipomic import CLIPOMIC_NET
     from .models.nets import SNN_NET, SNNM_NET
 
     def shape(key):
@@ -194,6 +207,15 @@ def _zoo_expected(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Size]:
             else:
                 module = F.HFB(path_input_dim=shape(f"{fm}/encoder_path/enc1/kernel")[0])
             model = FusionNet(module, num_classes)
+        elif has("genomic_backbone/omic_fc"):
+            bb = "genomic_backbone"
+            len_mol, width = shape(f"{bb}/omic_fc/TorchLinear_0/kernel")
+            model = CLIPOMIC_NET(
+                num_classes, len_mol=len_mol, width=width, heads=1,
+                layers=_count(flat, f"params/{bb}/resblocks_{{}}"),
+                vocab_size=shape(f"{bb}/token_embedding")[0],
+                context_length=shape(f"{bb}/positional_embedding")[0],
+                model_size_omic={256: "small", 384: "big"}[shape(f"{bb}/rho/bias")[0]])
         elif has("backbone/attention_net"):
             first = shape("backbone/fc_omic_0/MaxLinear_0/kernel")
             model = SNNM_NET(num_classes, first[0],
@@ -202,6 +224,118 @@ def _zoo_expected(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Size]:
             first = shape("backbone/fc_omic_0/MaxLinear_0/kernel")
             model = SNN_NET(num_classes, first[0], model_size_omic=size[first[1]])
     return {k: v.shape for k, v in model.state_dict().items()}
+
+
+def _count(flat: Dict[str, np.ndarray], pattern: str) -> int:
+    """How many list members ``pattern.format(i)`` (i = 0, 1, ...) ``flat``
+    holds a key under."""
+    n = 0
+    while any(k.startswith(pattern.format(n) + "/") for k in flat):
+        n += 1
+    return n
+
+
+def _clip_expected(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Size]:
+    """Key -> shape (parameters and buffers) of the port's CLIP tower at the
+    widths ``flat`` implies: a ViT (``conv1_kernel``), a ModifiedResNet
+    (``layer1_0``) or a text tower (``token_embedding``).  The head count
+    changes no shape (one head stands in)."""
+    from .models import clip
+
+    def shape(key):
+        return _shape(flat, "params/" + key)
+
+    with torch.device("meta"):
+        if "params/conv1_kernel" in flat:
+            patch, _, _, width = shape("conv1_kernel")
+            grid = math.isqrt(shape("positional_embedding")[0] - 1)
+            model = clip.VisionTransformer(grid * patch, patch, width,
+                                           _count(flat, "params/resblocks_{}"), 1,
+                                           shape("proj")[1])
+        elif "params/layer1_0/conv1/kernel" in flat:
+            spacial = shape("attnpool/positional_embedding")[0] - 1
+            model = clip.ModifiedResNet(
+                [_count(flat, f"params/layer{s}_{{}}") for s in (1, 2, 3, 4)],
+                shape("attnpool/c_proj/kernel")[1], 1, math.isqrt(spacial) * 32,
+                shape("conv3/kernel")[3])
+        else:
+            vocab, width = shape("token_embedding")
+            model = clip.TextTransformer(shape("positional_embedding")[0], vocab, width, 1,
+                                         _count(flat, "params/resblocks_{}"),
+                                         shape("text_projection")[1])
+    return {k: v.shape for k, v in model.state_dict().items()}
+
+
+def clip_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The state dict of a port CLIP tower (ViT, ModifiedResNet with its
+    ``batch_stats``, or the text tower) from its flattened flax variables."""
+    return _state_dict(flat, _clip_expected(flat))
+
+
+def _openai_block(state, src: str, dst: str, out: Dict[str, torch.Tensor]) -> None:
+    """One residual attention block of an OpenAI ``state_dict`` under the
+    port's names; the packed ``in_proj_weight`` turns ``[3d, d]`` ->
+    ``[d, 3d]``."""
+    for key in [k for k in state if k.startswith(src)]:
+        value = state[key]
+        out[dst + key[len(src):]] = value.T if key.endswith("attn.in_proj_weight") else value
+
+
+def convert_torch_clip_state(state, name: str = "ViT-B/32"
+                             ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """An OpenAI CLIP ``state_dict`` (tensors or numpy arrays) as the
+    ``state_dict`` of the port's vision tower and of its text tower,
+    float32 (the counterpart of the JAX package's
+    ``convert_torch_clip_state``).  The vision side is empty where the state
+    has no ``visual.conv1.weight``, the text side where it has no
+    ``token_embedding.weight``; the vision layer count is the config's
+    (``name``), the text layer count is read from the state (a shrunken
+    tower loads as it is).  ModifiedResNet running statistics become the
+    port's BatchNorm buffers (``num_batches_tracked`` has no counterpart)."""
+    from .models.clip import CLIP_CONFIGS
+
+    state = {k: v.detach().to("cpu", torch.float32) if isinstance(v, torch.Tensor)
+             else torch.as_tensor(np.asarray(v, np.float32))
+             for k, v in state.items() if not k.endswith("num_batches_tracked")}
+    c = CLIP_CONFIGS[name]
+    vis: Dict[str, torch.Tensor] = {}
+    if "visual.layer1.0.conv1.weight" in state:  # ModifiedResNet family
+        for key, value in state.items():
+            if key.startswith("visual."):
+                key = key[len("visual."):].replace("downsample.0.", "downsample_conv.")
+                vis[key.replace("downsample.1.", "downsample_bn.")] = value
+    elif "visual.conv1.weight" in state:
+        vis["conv1_kernel"] = state["visual.conv1.weight"].permute(2, 3, 1, 0)  # OIHW -> HWIO
+        for key in ("class_embedding", "positional_embedding", "proj", "ln_pre.weight",
+                    "ln_pre.bias", "ln_post.weight", "ln_post.bias"):
+            vis[key] = state["visual." + key]
+        for i in range(c["vision_layers"]):
+            _openai_block(state, f"visual.transformer.resblocks.{i}.", f"resblocks.{i}.", vis)
+    txt: Dict[str, torch.Tensor] = {}
+    if "token_embedding.weight" in state:
+        txt["token_embedding"] = state["token_embedding.weight"]
+        for key in ("positional_embedding", "text_projection", "ln_final.weight",
+                    "ln_final.bias"):
+            txt[key] = state[key]
+        n_layers = 0
+        while f"transformer.resblocks.{n_layers}.ln_1.weight" in state:
+            n_layers += 1
+        for i in range(n_layers or c["transformer_layers"]):
+            _openai_block(state, f"transformer.resblocks.{i}.", f"resblocks.{i}.", txt)
+    return ({k: v.contiguous() for k, v in vis.items()},
+            {k: v.contiguous() for k, v in txt.items()})
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of a torch checkpoint file: a saved state dict,
+    or an OpenAI TorchScript archive (``ViT-B-16.pt``), which
+    ``torch.load`` refuses with ``weights_only`` and ``torch.jit.load``
+    reads."""
+    try:
+        state = torch.load(path, map_location="cpu", weights_only=True)
+    except RuntimeError:  # a TorchScript archive
+        state = torch.jit.load(path, map_location="cpu")
+    return state.state_dict() if hasattr(state, "state_dict") else state
 
 
 def umeml_gan_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -230,7 +364,9 @@ def _state_dict(flat: Dict[str, np.ndarray], expected: Dict[str, torch.Size],
         if tkey not in expected:
             raise KeyError(f"flax key {key!r} -> {tkey!r} has no counterpart in the port")
         arr = np.asarray(value, dtype=np.float32)
-        t = torch.tensor(arr.T if transpose else arr)  # a copy, contiguous
+        if transpose:  # Dense [in, out] -> [out, in]; Conv HWIO -> OIHW
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        t = torch.tensor(arr)  # a copy, contiguous
         if t.shape != expected[tkey]:
             raise ValueError(
                 f"{key!r} -> {tkey!r}: shape {tuple(t.shape)} != {tuple(expected[tkey])}"

@@ -5,9 +5,8 @@ TRAINER_REGISTRY = Registry("TRAINER")
 
 def build_trainer(cfg, device="cuda"):
     """The trainer ``cfg.TRAINER.NAME`` on ``device``: MBTRAIN, the
-    unimodal baselines (ABMIL, TransMIL, SNN, SNNM) and the fusion baselines
-    (MCAT, CMTA, Porpoise, ConCAT, ADD, HFB); CLIPOMIC raises its
-    deferral."""
+    unimodal baselines (ABMIL, TransMIL, SNN, SNNM), CLIPOMIC and the fusion
+    baselines (MCAT, CMTA, Porpoise, ConCAT, ADD, HFB)."""
     from . import baselines, fusion_trainers, mbtrain  # noqa: F401  (register)
     from ..utils.registry import check_availability
 

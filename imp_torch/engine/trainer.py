@@ -7,8 +7,8 @@ selection, best/last checkpoints and the ``* metric: X%`` log lines
 Two trainers stand on :class:`TrainerBase`: MBTRAIN (``engine/mbtrain.py``,
 UMEML_GAN with its own curriculum loop) and :class:`StandardTrainer`, the
 one-optimizer loop of the baselines (``engine/baselines.py``: ABMIL,
-TransMIL, SNN, SNNM; ``engine/fusion_trainers.py``: MCAT, CMTA, Porpoise,
-ConCAT, ADD, HFB).  Both run the four tasks: Survival (C-index, from a survival
+TransMIL, SNN, SNNM, CLIPOMIC; ``engine/fusion_trainers.py``: MCAT, CMTA,
+Porpoise, ConCAT, ADD, HFB).  Both run the four tasks: Survival (C-index, from a survival
 head of 4 bins) and Classification, Grading and Subtyping (cross-entropy;
 accuracy, AUC and macro-F1 from ``evaluation/evaluators.py``).
 
@@ -372,11 +372,30 @@ class StandardTrainer(TrainerBase):
         if "seq" in cfg.TPU.MESH_AXES:
             raise deferred("sequence parallelism (TPU.MESH_AXES with 'seq')", 8)
 
+    def param_labels(self) -> Optional[Dict[str, str]]:
+        """``"train"`` or ``"frozen"`` for each parameter name of the net, or
+        None (every parameter trains): the labels of the JAX trainer's
+        ``optax.multi_transform``, whose ``frozen`` part is
+        ``set_to_zero``.  A frozen parameter stays out of the optimizer (no
+        update, no weight decay, no optimizer state) and takes no gradient
+        of its own; gradients still flow through it to the parameters that
+        train, and it is saved and loaded with the model."""
+        return None
+
     def build_model(self):
         self.model = self.build_network()
         print(f"# params: {count_num_param(self.model):,}")
+        params = list(self.model.parameters())
+        labels = self.param_labels()
+        if labels is not None:
+            named = list(self.model.named_parameters())
+            frozen = [p for n, p in named if labels[n] == "frozen"]
+            for p in frozen:
+                p.requires_grad_(False)
+            print(f"# frozen params: {sum(p.numel() for p in frozen):,}")
+            params = [p for n, p in named if labels[n] == "train"]
         accum = max(1, self.cfg.OPTIM.GRAD_ACCUM)
-        self.optimizer = build_optimizer(self.cfg.OPTIM, list(self.model.parameters()),
+        self.optimizer = build_optimizer(self.cfg.OPTIM, params,
                                          max(1, -(-len(self.train_loader) // accum)),
                                          grad_accum=accum)
 

@@ -1,7 +1,7 @@
 """Model registry — the PyTorch counterpart of ``imp_tpu/models/__init__.py``.
 Same config names; the port registers ``umeml``, ``umeml_gan``,
-``transmil``, ``abmil``, ``snn`` and ``snnm`` here, and the fusion nets
-``mcat``, ``cmta``, ``porpoise`` and ``hfb`` with their trainers
+``transmil``, ``abmil``, ``snn``, ``snnm`` and ``clipomic`` here, and the
+fusion nets ``mcat``, ``cmta``, ``porpoise`` and ``hfb`` with their trainers
 (``engine/fusion_trainers.py``).  Every builder turns TF32 off, initialises the
 model from a ``torch.Generator`` (default: seed 0) without touching the
 caller's RNG, and returns it on ``device`` in eval mode.  The builders of
@@ -18,7 +18,9 @@ from torch import nn
 
 from ..ops.attention import init_parameters_
 from ..utils.registry import Registry
+from .clipomic import CLIPOMIC_NET
 from .nets import ABMIL_NET, SNN_NET, SNNM_NET, TransMIL_NET
+from .prototypes import plip_prototype_init
 from .umeml import UMEML
 from .umeml_gan import UMEML_GAN
 
@@ -60,14 +62,6 @@ def build_module(make: Callable[[], nn.Module], device, generator: Optional[torc
     return model.to(device).eval()
 
 
-def _check_proto_init(cfg) -> None:
-    if cfg.MODEL.UMEML.PROTO_INIT != "uniform":
-        raise NotImplementedError(
-            f"MODEL.UMEML.PROTO_INIT={cfg.MODEL.UMEML.PROTO_INIT!r} needs the "
-            "PLIP text tower: not ported yet (ROADMAP.md §A, CLIP/PLIP towers)"
-        )
-
-
 @MODEL_REGISTRY.register_as("umeml")
 def build_umeml(
     cfg,
@@ -77,8 +71,9 @@ def build_umeml(
     generator: Optional[torch.Generator] = None,
     pinv_mode: str = "chain",
 ) -> UMEML:
-    """UMEML from ``cfg`` over ``omic_dim`` genes (it has no gene groups)."""
-    _check_proto_init(cfg)
+    """UMEML from ``cfg`` over ``omic_dim`` genes (it has no gene groups).
+    Its prototypes are always drawn uniform: as in the JAX package, only
+    UMEML_GAN reads ``MODEL.UMEML.PROTO_INIT``."""
     return build_module(
         lambda: UMEML(
             num_classes=num_classes,
@@ -105,8 +100,12 @@ def build_umeml_gan(
     generator: Optional[torch.Generator] = None,
     pinv_mode: str = "chain",
 ) -> UMEML_GAN:
-    """UMEML_GAN from ``cfg`` and the gene groups."""
-    _check_proto_init(cfg)
+    """UMEML_GAN from ``cfg`` and the gene groups; with
+    ``MODEL.UMEML.PROTO_INIT=plip`` its prototypes come from the cached PLIP
+    prototypes (:func:`imp_torch.models.prototypes.plip_prototype_init`)."""
+    proto_init = None
+    if cfg.MODEL.UMEML.PROTO_INIT == "plip":
+        proto_init = plip_prototype_init(cfg, cfg.MODEL.UMEML.PROTOTYPES, cfg.MODEL.HIDDEN_DIM)
     return build_module(
         lambda: UMEML_GAN(
             num_classes=num_classes,
@@ -122,6 +121,7 @@ def build_umeml_gan(
             kd_t=float(cfg.MODEL.UMEML.KD_T),
             attention=resolve_attention(cfg.TPU.ATTENTION),
             pinv_mode=pinv_mode,
+            proto_init=proto_init,
         ),
         device, generator,
     )
@@ -170,6 +170,24 @@ def build_snnm(cfg, num_classes: int, omic_dim: int, device="cuda",
     """SNN_M over chunks of 50 genes at ``MODEL.SIZE`` and ``MODEL.DROPOUT``."""
     return build_module(
         lambda: SNNM_NET(num_classes, 50, float(cfg.MODEL.DROPOUT), cfg.MODEL.SIZE),
+        device, generator,
+    )
+
+
+@MODEL_REGISTRY.register_as("clipomic")
+def build_clipomic(cfg, num_classes: int, omic_dim: int, device="cuda",
+                   generator: Optional[torch.Generator] = None) -> CLIPOMIC_NET:
+    """CLIPOMIC over 5 chunks of ``omic_dim // 5`` genes (the reference's
+    fixed 200 only agrees at 1 000 genes), its text tower at
+    ``MODEL.BACKBONE.TEXT_*``."""
+    bb = cfg.MODEL.BACKBONE
+    return build_module(
+        lambda: CLIPOMIC_NET(
+            num_classes, num_mol=5, len_mol=max(1, omic_dim // 5),
+            model_size_omic=cfg.MODEL.SIZE, dropout=float(cfg.MODEL.DROPOUT),
+            width=bb.TEXT_WIDTH, heads=bb.TEXT_HEADS, layers=bb.TEXT_LAYERS,
+            vocab_size=bb.TEXT_VOCAB, context_length=bb.TEXT_CONTEXT,
+        ),
         device, generator,
     )
 

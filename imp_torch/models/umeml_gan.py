@@ -23,12 +23,14 @@ the others raise ``NotImplementedError`` naming their ROADMAP item.
 ``attention`` replaces the process-global ``TPU.ATTENTION`` default, and
 ``pinv_mode`` the JAX module global ``PINV_MODE`` (``"chain"``, the default,
 or ``"fused"``: the Nyström pseudo-inverse through the kernels K6/K7, see
-:func:`imp_torch.ops.attention.moore_penrose_pinv`).
+:func:`imp_torch.ops.attention.moore_penrose_pinv`).  ``proto_init``, JAX's
+``proto_initializer``, fills the prototypes in place of the uniform draw
+(the cached PLIP prototypes, :mod:`imp_torch.models.prototypes`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -90,6 +92,7 @@ class UMEML_GAN(nn.Module):
         head_fused: bool = True,
         stacked_pairs: bool = False,
         bag_dtype: Optional[torch.dtype] = None,
+        proto_init: Optional[Callable[[torch.Tensor, torch.Generator], None]] = None,
     ):
         super().__init__()
         if len(gene_group_indexes) != n_proto:
@@ -111,6 +114,7 @@ class UMEML_GAN(nn.Module):
         self.num_classes, self.hidden = num_classes, hidden
         self.n_proto, self.kd_t, self.attention = n_proto, kd_t, attention
         self.dropout_rate, self.lambda_cyc = dropout_rate, lambda_cyc
+        self.proto_init = proto_init
         self.gene_group_indexes = tuple(tuple(int(i) for i in g) for g in gene_group_indexes)
         tokens = n_proto + 1
 
@@ -157,7 +161,10 @@ class UMEML_GAN(nn.Module):
 
     @torch.no_grad()
     def reset_own_parameters(self, generator: torch.Generator) -> None:
-        proto_init_(self.p_proto, self.n_proto, generator)
+        if self.proto_init is None:  # the reference's reset(): uniform
+            proto_init_(self.p_proto, self.n_proto, generator)
+        else:
+            self.proto_init(self.p_proto, generator)
         self.p_encoder_token.uniform_(0.0, 1.0, generator=generator)
         self.o_encoder_token.uniform_(0.0, 1.0, generator=generator)
 

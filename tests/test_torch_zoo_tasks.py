@@ -1,4 +1,5 @@
-"""The zoo's eight trainers of the PyTorch port on the other three tasks of
+"""The zoo's eight trainers of the PyTorch port, and CLIPOMIC (its text
+tower at the sizes of ``tests/test_clipomic.py``), on the other three tasks of
 the paper (Classification with 6 classes, Grading and Subtyping with 3):
 one epoch each through ``python -m imp_torch.tools.train --device cpu`` on
 its ``configs/<Task>/<Trainer>.yaml``, the ``* accuracy`` block in the log,
@@ -21,7 +22,8 @@ from imp_torch.config import get_cfg_default
 from imp_torch.engine import build_trainer
 from imp_torch.tools.train import run
 
-from test_torch_zoo_trainers import BAG, FEAT, REPO, ZOO, one_torch_thread, tree, zoo_cfg
+from test_torch_zoo_trainers import (BAG, FEAT, REPO, TEXT_OPTS, ZOO, one_torch_thread, tree,
+                                     zoo_cfg)
 
 __all__ = ["one_torch_thread", "tree"]  # fixtures of this file
 
@@ -29,7 +31,7 @@ CLASSES = {"Classification": 6, "Grading": 3, "Subtyping": 3}
 
 
 @pytest.mark.parametrize("task", list(CLASSES))
-@pytest.mark.parametrize("trainer", ZOO)
+@pytest.mark.parametrize("trainer", ZOO + ["CLIPOMIC"])
 def test_zoo_trainer_trains_and_reloads_at_the_task(tree, tmp_path, capsys, monkeypatch, trainer,
                                                     task):
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)  # JSONL metrics only
@@ -39,7 +41,7 @@ def test_zoo_trainer_trains_and_reloads_at_the_task(tree, tmp_path, capsys, monk
                   "--output-dir", out, "DATASET.BAG_PAD", str(BAG), "DATASET.PATH.DIM",
                   str(FEAT), "DATALOADER.TRAIN.BATCH_SIZE", "3", "DATALOADER.TEST.BATCH_SIZE",
                   "3", "OPTIM.MAX_EPOCH", "1", "TPU.PREFETCH", "0", "OPTIM.GRAD_ACCUM",
-                  "2" if trainer == "MCAT" else "1"])
+                  "2" if trainer == "MCAT" else "1", *TEXT_OPTS])
     log = capsys.readouterr().out
     assert result is not None and np.isfinite(result) and "* accuracy:" in log
 
