@@ -135,6 +135,47 @@ Phases, each printing one JSON line (the run fails on the first error):
    ``prompts/prompt.json``, then MBTRAIN on UMEML_GAN.yaml's values for 2
    epochs with ``MODEL.UMEML.PROTO_INIT plip``: the initial prototypes are
    the file's, K4/K5 once per main step.
+21. ``kernel_flash_bf16`` — K1-K3's bf16 entries (``TRAINER.PREC`` bf16: q,
+   k, v in bf16; bias, dO, lse, delta and every output fp32) at TransMIL's
+   bag, CMTA's masked bag and UMEML_GAN's batch-8 sequences: the same bits
+   as the fp32 entries on ``.float()`` copies, within 1e-4 of the plain
+   versions, timed beside their bounds (each product at the rate its
+   operands need: Q·K^T at the bf16 peak, a product with one bf16 operand
+   in 2 TF32 passes, P^T·dO in 3xTF32), the plain versions, SDPA on the
+   widened operands and SDPA in bf16 (not the same function).
+22. ``train_step_bf16`` — one bf16 step through the kernels against the
+   same step through the plain versions (loss and every gradient within
+   2e-2 of its max-abs, and no farther from the fp32 plain step than twice
+   the plain bf16 step, plus 1e-4): UMEML_GAN at batch 8 under flash at
+   ``bf16``, TransMIL at the 10 000-patch slide under flash at ``amp``;
+   each step's time, device busy time, idle share and peak memory beside
+   the same trainer's fp32 step.
+23. ``train_bf16`` — the train CLI at ``TRAINER.PREC bf16``: UMEML_GAN under
+   flash for 2 epochs (GAN on, the CCA epoch between, which runs fp32 as in
+   JAX) with, per main step, the bf16 entries for the path decoder and the
+   bottleneck and the fp32 ones for the omics encoders and decoder (JAX's
+   dtype flow: an fp32 gene-group mask keeps the omics branch fp32), K2/K3
+   per call with grad and K4/K5 once, K1 alone in evaluation,
+   the C-index lines and fp32 checkpoints; CMTA under flash at ``fp16`` for
+   one epoch (the bf16 entries 8 per step, K1's 8 per eval batch).
+24. ``umeml_bsm`` — UMEML at batch 2 with ``DATASET.USE_BSM`` at
+   ``BS_MICRO`` 512 (a 10 000-token bag in 20 chunks), the pseudo-inverse
+   fused: one step at a fixed permutation through the kernels against the
+   plain versions (STEP_TOL, or :func:`float64_check`), K4/K5 20 times and
+   K6/K7 120 times per step, its step time.
+25. ``umeml_gan_variants`` — UMEML_GAN at batch 8 under ``auto`` and flash:
+   ``head_fused=False`` and ``stacked_pairs=True`` (twin weights stacked)
+   within STEP_TOL of the default model in loss and every gradient,
+   ``bag_dtype=bfloat16`` at the bf16 gate of phase 22 (its plain run and
+   the fp32 default model for reference), ``MODEL.INIT_WEIGHTS`` from a
+   checkpoint giving the same eval logits bit for bit, ``umeml_gan_plot``'s
+   [B, 7, 7] similarity grids and the count of PNGs written (none where
+   matplotlib is absent).
+26. ``trace_sessions`` — how many primer kernel records each traced window
+   lost (:func:`traced`: the profiler loses the first records of a
+   session, the more the older the process).
+Phases 22-25 run after 16 and before the CLIP phases (17-20); phase 21
+runs last, where the profiler loses the most records, then phase 26.
 ``train_step`` (phase 6) also times UMEML_GAN's batch-8 step with the fused
 mode.  The fused mode has no cfg key (JAX's ``PINV_MODE`` is a module
 global): the runs build their models fused with :func:`pinv_mode` around
@@ -147,7 +188,8 @@ main path: serving for K1, TransMIL training for K2/K3, MBTRAIN for
 K4/K5 (with ``plip_launches``, their launches in ``plip_umeml_gan``), UMEML
 training for K6/K7, each with a ``cmta`` object: its launches
 in CMTA's epoch under flash (K1-K3) or fused (K6/K7) and its times at CMTA's
-shape, K1-K3 at (1, 8, 10 001, 32), K6/K7 at (8, 128); K2 and K3 each with its own device time
+shape, K1-K3 at (1, 8, 10 001, 32), K6/K7 at (8, 128); K1-K3 each with a ``bf16`` object: its bf16 entry's launches in
+``train_bf16`` and its times at TransMIL's bag; K2 and K3 each with its own device time
 and plain version, no library call, and a ``pair`` object that times dq,
 dk and dv together through the wrapper, the plain backward and SDPA's
 backward, with the name of SDPA's backward kernel from the trace; K6 and K7 with a ``chain`` object, the times of the unrolled
@@ -183,6 +225,11 @@ PEAK_TF32_FLOPS = 494.7e12
 #: fp32-accurate products on the tensor cores: 3xTF32 (big.big + big.small +
 #: small.big) takes three TF32 products for one
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
+PEAK_BF16_FLOPS = 989e12
+#: the tensor cores' rate for a product by how many of its two operands are
+#: bf16: both (exact as one bf16 product with fp32 accumulation), one (exact
+#: in TF32, so its low split is zero: 2 TF32 passes), none (3xTF32)
+PRODUCT_PEAK = {2: PEAK_BF16_FLOPS, 1: PEAK_TF32_FLOPS / 2, 0: PEAK_3XTF32_FLOPS}
 #: exps on the special-function units: 16 a clock per SM (CUDA C++
 #: Programming Guide, arithmetic instruction throughput, compute capability
 #: 9.0) x 132 SMs x 1.98 GHz, the boost clock behind ``PEAK_FP32_FLOPS``
@@ -348,41 +395,86 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def profiled(fn, iters: int):
-    """``torch.profiler`` key averages over ``iters`` calls of ``fn`` (after
-    one untimed call); None where CUPTI refuses to trace the card."""
+#: tiny kernels (``torch.cuda._sleep``: ``spin_kernel``) launched at the
+#: start of each traced window.  The profiler loses the first kernel
+#: records of a session, the more the older the process (none early in a
+#: run; every record of a short window at its end, after the CLIP phases),
+#: whichever library launched the kernels, which run and give their
+#: results all the same; the primers take the loss, and a window in which
+#: none of them survived is traced again with four times as many
+TRACE_PRIMERS = 64
+PRIMER_KERNEL = "spin_kernel"
+#: (primers launched, primer records in the trace) of every traced window
+TRACE_SESSIONS: list = []
+
+
+def traced(fn, iters: int):
+    """The ``torch.profiler`` session of ``iters`` calls of ``fn`` (after
+    one untimed call), behind ``TRACE_PRIMERS`` primer kernels; None where
+    CUPTI refuses to trace the card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-    except RuntimeError as e:  # CUPTI refused: report, do not fail the run
-        print(f"chip_smoke: profiler unavailable: {e}", file=sys.stderr)
+    primers = TRACE_PRIMERS
+    while True:
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(primers):
+                    torch.cuda._sleep(1)
+                torch.cuda.synchronize()
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+        except RuntimeError as e:  # CUPTI refused: report, do not fail the run
+            print(f"chip_smoke: profiler unavailable: {e}", file=sys.stderr)
+            return None
+        seen = sum(e.count for e in prof.key_averages() if PRIMER_KERNEL in e.key)
+        TRACE_SESSIONS.append((primers, seen))
+        if seen:  # the loss ended among the primers: fn's records are whole
+            return prof
+        require(primers < 64 * TRACE_PRIMERS,
+                f"the trace lost all of {primers} primer kernels: {TRACE_SESSIONS[-4:]}")
+        primers *= 4
+
+
+def profiled(fn, iters: int):
+    """The key averages of :func:`traced`; None where CUPTI refuses.  Fails
+    where the trace holds no device row of ``fn``: every traced ``fn`` runs
+    device work."""
+    prof = traced(fn, iters)
+    if prof is None:
         return None
-    return prof.key_averages()
+    events = prof.key_averages()
+    require(device_rows(events), f"the trace of {getattr(fn, '__name__', fn)} holds no "
+                                 "device row")
+    return events
 
 
 def device_rows(events):
     """The rows of a trace that are device work (kernels, copies, sets).
     A CPU row (an aten op, ``cudaLaunchKernel``) also carries the device
     time of the kernels it launched, so summing every row counts a kernel
-    more than once."""
+    more than once.  The primer kernels of :func:`traced` are left out."""
     from torch.autograd import DeviceType
 
-    return [e for e in events or () if e.device_type == DeviceType.CUDA]
+    return [e for e in events or ()
+            if e.device_type == DeviceType.CUDA and PRIMER_KERNEL not in e.key]
 
 
 def device_ms_by(fn, kernel_names, iters: int = 20) -> dict:
     """Mean device time per call of ``fn`` of each CUDA kernel whose name
     holds one of ``kernel_names``; None where the trace holds no device time
-    for it."""
+    for it.  Fails where a kernel's launches in the trace are no multiple
+    of ``iters`` (each call launches it as often): the trace lost some."""
     rows = device_rows(profiled(fn, iters))
-    totals = {k: sum(e.self_device_time_total for e in rows if k in e.key) for k in kernel_names}
+    totals = {}
+    for k in kernel_names:
+        mine = [e for e in rows if k in e.key]
+        count = sum(e.count for e in mine)
+        require(count % iters == 0, f"{count} launches of {k} in a trace of {iters} calls")
+        totals[k] = sum(e.self_device_time_total for e in mine)
     return {k: v / iters / 1e3 if v else None for k, v in totals.items()}
 
 
@@ -432,19 +524,42 @@ FLASH_SHAPES = [
 FLASH_PER_FORWARD = {"serve_b8_n7": 4, "serve_b16_n14": 2}
 
 
-def flash_fwd_bounds(b, h, n, d, valid) -> dict:
-    """The least time for K1 on this call's work, the largest of three
-    terms: QK^T and PV (4 FLOPs per (query, key) pair and dim),
-    fp32-accurate on the tensor cores (3xTF32); one exp per pair on the
-    special-function units; q, k, v, bias read once and O, lse written once.
+#: the products of K1-K3 (2 FLOPs per (query, key) pair and dim each) by
+#: their operands: q, k and v in the entry's dtype, P, dS and dO in fp32
+FLASH_PRODUCTS = {
+    "flash_fwd": (("q", "k"), ("p", "v")),
+    "flash_bwd_dq": (("q", "k"), ("do", "v"), ("ds", "k")),
+    "flash_bwd_dkv": (("q", "k"), ("do", "v"), ("p", "do"), ("ds", "q")),
+}
+
+
+def flash_bound_ms(kernel: str, pairs: int, d: int, nbytes: float, dtype: str) -> tuple:
+    """The larger of the operations (``kernel``'s products, each at the
+    rate its operands need (``PRODUCT_PEAK``; q, k, v are bf16 where
+    ``dtype`` is ``"bf16"``), or one exp per pair on the special-function
+    units, whichever takes longer) and the bytes at the memory rate, in ms,
+    and which one it is."""
+    narrow = {"q", "k", "v"} if dtype == "bf16" else set()
+    products = sum(2 * pairs * d / PRODUCT_PEAK[sum(o in narrow for o in operands)]
+                   for operands in FLASH_PRODUCTS[kernel])
+    terms = {"operations": max(products, pairs / PEAK_SFU_OPS), "bytes": nbytes / PEAK_BYTES}
+    by = max(terms, key=terms.get)
+    return terms[by] * 1e3, by
+
+
+def flash_fwd_bounds(b, h, n, d, valid, dtype: str = "fp32") -> dict:
+    """The least time for K1 on this call's work (:func:`flash_bound_ms`):
+    QK^T and PV, one exp per pair; q, k, v (in ``dtype``: fp32 or bf16),
+    bias read once and O, lse (fp32) written once.
     Pairs count the keys the data needs: a slide's valid keys (``valid``:
     counts per slide), or all of them where none is valid (O is then the
     mean of V).  ``bound_fp32_cores_ms`` is the same work with the products
     on the fp32 CUDA cores, the route of K1's first design."""
     keys = b * n if valid is None else sum(v if v else n for v in valid)
     pairs = h * n * keys
-    nbytes = 4 * (4 * b * h * n * d + b * n + b * h * n)
-    bound, by = tf32x3_bound_ms(4 * pairs * d, pairs, nbytes)
+    operand_bytes = 2 if dtype == "bf16" else 4
+    nbytes = (3 * operand_bytes + 4) * b * h * n * d + 4 * (b * n + b * h * n)
+    bound, by = flash_bound_ms("flash_fwd", pairs, d, nbytes, dtype)
     return {"bound_ms": bound, "bound_by": by,
             "bound_fp32_cores_ms": bound_ms(4 * pairs * d + pairs, nbytes)[0]}
 
@@ -562,20 +677,22 @@ def key_valid(n: int, spec, device, tile=None):
     return valid
 
 
-def flash_bwd_bounds(b, h, n, d, valid) -> dict:
-    """The least time for K2 and K3 on this call's work, the largest of
-    three terms: the products, fp32-accurate on the tensor cores (3xTF32),
-    per (query, key) pair and dim 3 (K2: 6 FLOPs) or 4 (K3: 8); one exp per
-    pair on the special-function units; q, k, v, dO, bias, lse and delta
-    read once and the gradients written once. Pairs count the keys the data
-    needs: a slide's valid keys (``valid``: counts per slide), or all of
-    them where none is valid (P = 1 on every key there)."""
+def flash_bwd_bounds(b, h, n, d, valid, dtype: str = "fp32") -> dict:
+    """The least time for K2 and K3 on this call's work
+    (:func:`flash_bound_ms`): K2's three products and K3's four, one exp
+    per pair; q, k, v (in ``dtype``: fp32 or bf16), dO, bias, lse and delta
+    (fp32) read once and the fp32 gradients written once. Pairs count the
+    keys the data needs: a slide's valid keys (``valid``: counts per
+    slide), or all of them where none is valid (P = 1 on every key there)."""
     keys = b * n if valid is None else sum(v if v else n for v in valid)
     pairs = h * n * keys
-    inputs = 4 * (4 * b * h * n * d + b * n + 2 * b * h * n)
+    operand_bytes = 2 if dtype == "bf16" else 4
+    inputs = (3 * operand_bytes + 4) * b * h * n * d + 4 * (b * n + 2 * b * h * n)
     return {
-        "flash_bwd_dq": tf32x3_bound_ms(6 * pairs * d, pairs, inputs + 4 * b * h * n * d),
-        "flash_bwd_dkv": tf32x3_bound_ms(8 * pairs * d, pairs, inputs + 8 * b * h * n * d),
+        "flash_bwd_dq": flash_bound_ms("flash_bwd_dq", pairs, d,
+                                       inputs + 4 * b * h * n * d, dtype),
+        "flash_bwd_dkv": flash_bound_ms("flash_bwd_dkv", pairs, d,
+                                        inputs + 8 * b * h * n * d, dtype),
     }
 
 
@@ -1552,11 +1669,12 @@ def grads_check(loss_and_grads, plain, names):
     return check, counted
 
 
-def time_step(step, kernel_names, timed: int = STEP_TIMED):
+def time_step(step, kernel_names, timed: int = STEP_TIMED, traced: int = 3):
     """Median and p90 host ms of ``timed`` calls of ``step()`` (synchronised,
     after warm-up),
     the device busy ms per step, the device ms of ``kernel_names`` per
-    step (together and by kernel), and the peak device memory."""
+    step (together and by kernel) over ``traced`` traced steps, and the
+    peak device memory."""
     import torch
 
     for _ in range(3):
@@ -1570,13 +1688,16 @@ def time_step(step, kernel_names, timed: int = STEP_TIMED):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    events = profiled(step, 3)
+    events = profiled(step, traced)
     rows = device_rows(events)
-    busy = sum(e.self_device_time_total for e in rows) / 3 / 1e3 if rows else None
+    for k in kernel_names:  # each step launches a kernel as often: none lost
+        count = sum(e.count for e in rows if k in e.key)
+        require(count % traced == 0, f"{count} launches of {k} in a trace of {traced} steps")
+    busy = sum(e.self_device_time_total for e in rows) / traced / 1e3 if rows else None
 
     def named_ms(names):
         return (sum(e.self_device_time_total for e in rows
-                    if any(k in e.key for k in names)) / 3 / 1e3) if rows else None
+                    if any(k in e.key for k in names)) / traced / 1e3) if rows else None
 
     median = float(np.median(times)) * 1e3
     return {
@@ -1587,7 +1708,8 @@ def time_step(step, kernel_names, timed: int = STEP_TIMED):
         "device_busy_ms_per_step": busy,
         # every row of the trace summed, for comparison: kernels counted
         # again under the CPU rows that launched them
-        "all_trace_rows_ms_per_step": sum(e.self_device_time_total for e in events or ()) / 3 / 1e3,
+        "all_trace_rows_ms_per_step": sum(e.self_device_time_total
+                                          for e in events or ()) / traced / 1e3,
         "device_idle_share": None if busy is None else 1.0 - busy / median,
         "peak_device_gib": peak, "loss_finite": bool(np.isfinite(float(metrics["loss"]))),
     }
@@ -2562,7 +2684,6 @@ CLIP_TOL = 1e-4
 CLIP_BF16_COS = 0.99  # --prec bf16 features vs fp32, cosine per patch
 CLIP_REPLAY_IMAGES = 2
 RN_MODEL, RN_BATCH = "RN50", 8
-PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet, dense tensor cores, 700 W
 CLIPOMIC_TASKS = ("Survival", "Classification", "Grading", "Subtyping")
 PROMPTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "prompts", "prompt.json")
 PLIP_EPOCHS = 2  # plain, then GAN, the CCA epoch between
@@ -2955,6 +3076,619 @@ def phase_plip_umeml_gan(card: str, root: str, out: str):
 
 
 
+# ---------------------------------------------------------------------------
+# phases 21-25: the rest of the UMEML family (TRAINER.PREC bf16, USE_BSM,
+# the head and twin variants, INIT_WEIGHTS, the plot variant)
+# ---------------------------------------------------------------------------
+
+FLASH_BF16_SHAPES = [
+    # name, B, H, N, d, valid keys per slide (None = no mask; see key_valid)
+    ("transmil_n10001_d64", 1, 8, 10001, 64, (7314,)),  # TransMIL's bag at amp
+    ("cmta_n10001_d32", 1, 8, 10001, 32, (7314,)),  # CMTA's masked bag at fp16
+    ("serve_b8_n7", 8, 8, 7, 32, None),  # UMEML_GAN's encoders/decoders at batch 8
+    ("serve_b16_n14", 16, 8, 14, 32, None),  # its bottleneck encoders (2B rows)
+]
+BF16_MAIN_SHAPE = "transmil_n10001_d64"
+#: the bf16 entries' launch counters and the trace symbols of their kernels
+BF16_ENTRIES = {"flash_fwd": "flash_fwd_bf16", "flash_bwd_dq": "flash_bwd_dq_bf16",
+                "flash_bwd_dkv": "flash_bwd_dkv_bf16"}
+BF16_GATE = 2e-2  # a bf16 step through the kernels vs through the plain versions
+BF16_MARGIN = 1e-4  # ... and its distance from the fp32 plain step: 2x the plain's + this
+
+
+def phase_flash_bf16(card: str, build_report: dict):
+    """K1-K3's bf16 entries (``TRAINER.PREC`` bf16: q, k, v in bf16, the rest
+    and the outputs fp32) at TransMIL's bag, CMTA's masked bag and
+    UMEML_GAN's batch-8 sequences: (1) the same bits as the fp32 entries on
+    ``.float()`` copies of the same operands (the entries widen exactly as
+    they stage), (2) within ``KERNEL_TOL`` of the plain versions; timed
+    beside their bounds (:func:`flash_bound_ms`: each product at the rate
+    its operands need, q, k, v at 2 bytes), the plain versions, SDPA on
+    the widened operands (the same function) and SDPA in bf16 (not the
+    same function: P·V in bf16)."""
+    import torch
+    import torch.nn.functional as F
+
+    from imp_torch import kernels
+    from imp_torch.ops.flash_attention import (
+        NEG_INF, flash_attention_bwd, flash_attention_bwd_dkv_reference,
+        flash_attention_bwd_dq_reference, flash_attention_bwd_reference, flash_attention_fwd,
+        flash_attention_reference, flash_fwd_layout,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plain = {"flash_bwd_dq": flash_attention_bwd_dq_reference,
+             "flash_bwd_dkv": flash_attention_bwd_dkv_reference}
+    rows = {}
+    for name, b, h, n, d, specs in FLASH_BF16_SHAPES:
+        g = torch.Generator(device=DEVICE).manual_seed(SEED)
+        q, k, v = (torch.randn(b, h, n, d, device=DEVICE, generator=g).bfloat16()
+                   for _ in range(3))
+        q = q * d**-0.5  # scaled in bf16, as flash_attention scales it
+        do = torch.randn(b, h, n, d, device=DEVICE, generator=g)
+        wide = tuple(t.float() for t in (q, k, v))  # the fp32 entries' operands
+        tile = flash_fwd_layout(d)["tile"]
+        if specs is None:
+            bias, valid = torch.zeros(b, n, device=DEVICE), None
+        else:
+            keep = torch.stack([key_valid(n, spec, DEVICE, tile) for spec in specs])
+            bias = torch.where(keep, 0.0, NEG_INF)
+            valid = [int(c) for c in keep.sum(dim=1).tolist()]
+        has_key = (bias == 0).any(dim=1)
+        iters = 200 if n < 100 else 10
+        with torch.no_grad():
+            kernels.reset_launches()
+            o, lse = flash_attention_fwd(q, k, v, bias)
+            o_w, lse_w = flash_attention_fwd(*wide, bias)
+            delta = (do * o_w).sum(-1)
+            args = (q, k, v, bias, do, lse_w, delta)
+            grads = flash_attention_bwd(*args)
+            grads_w = flash_attention_bwd(*wide, bias, do, lse_w, delta)
+            torch.cuda.synchronize()
+            launched = only_launched(kernels.launches())
+            o_ref, lse_ref = flash_attention_reference(q, k, v, bias)
+            ref = flash_attention_bwd_reference(*args)
+            same_bits = {"o": torch.equal(o, o_w), "lse": torch.equal(lse, lse_w),
+                         **{gn: torch.equal(a, w) for gn, a, w in zip(("dq", "dk", "dv"), grads,
+                                                                      grads_w)}}
+            errs = {"flash_fwd": max((o - o_ref).abs().max().item(),
+                                     (lse[has_key] - lse_ref[has_key]).abs().max().item()),
+                    "flash_bwd_dq": rel_err(grads[0], ref[0]),
+                    "flash_bwd_dkv": max(rel_err(a, r) for a, r in zip(grads[1:], ref[1:]))}
+            dtypes = [str(t.dtype) for t in (o, lse, *grads)]
+            del grads, grads_w, ref, o_ref
+            torch.cuda.empty_cache()
+
+            def fwd():
+                return flash_attention_fwd(q, k, v, bias)
+
+            def bwd():
+                return flash_attention_bwd(*args)
+
+            fwd_times = {"ms": cuda_ms(fwd, iters),
+                         "kernel_device_ms": device_ms(fwd, "flash_fwd_kernel", min(iters, 20)),
+                         "plain_ms": cuda_ms(lambda: flash_attention_reference(q, k, v, bias),
+                                             min(iters, 10), warmup=1),
+                         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                             *wide, attn_mask=bias[:, None, None, :], scale=1.0), iters),
+                         "library_bf16_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                             q, k, v, attn_mask=bias.bfloat16()[:, None, None, :], scale=1.0),
+                             iters)}
+            bwd_iters = 100 if n < 100 else 5
+            pair = {"covers": "dq, dk and dv: K2 then K3 in one flash_attention_bwd call",
+                    "ms": cuda_ms(bwd, bwd_iters),
+                    "plain_ms": cuda_ms(lambda: flash_attention_bwd_reference(*args),
+                                        min(bwd_iters, 3), warmup=1)}
+            bwd_times = {kn: (device_ms(bwd, sym, iters=min(bwd_iters, 20)),
+                              cuda_ms(lambda: plain[kn](*args), min(bwd_iters, 3), warmup=1))
+                         for kn, sym in BWD_KERNEL_SYMBOL.items()}
+        pair["library_ms"], pair["library_kernel"] = sdpa_bwd_ms(*wide, bias, do,
+                                                                 min(bwd_iters, 3))
+        pair["library_bf16_ms"], _ = sdpa_bwd_ms(q, k, v, bias.bfloat16(), do.bfloat16(),
+                                                 min(bwd_iters, 3))
+        pair["library_bf16_note"] = "not the same function: P·V and the gradients in bf16"
+        fb = flash_fwd_bounds(b, h, n, d, valid, "bf16")
+        bb = flash_bwd_bounds(b, h, n, d, valid, "bf16")
+        common = {"phase": "kernel_flash_bf16", "shape": name, "card": card, "B": b, "H": h,
+                  "N": n, "d": d, "valid": valid, "mask": specs, "launched": launched,
+                  "same_bits_as_f32_entry": same_bits, "out_dtypes": dtypes, "tol": KERNEL_TOL}
+        row = {**common, "kernel": "flash_fwd", "entry": "imp_flash_fwd_bf16",
+               "max_abs_err": errs["flash_fwd"], **fwd_times, "bound_ms": fb["bound_ms"],
+               "bound_by": fb["bound_by"],
+               "library_bf16_note": "not the same function: P·V in bf16",
+               "share_of_bound": fb["bound_ms"] / (fwd_times["kernel_device_ms"]
+                                                   or fwd_times["ms"]),
+               "ptxas": ptxas_lines(build_report, "flash_fwd.cu")}
+        emit(row)
+        rows[("flash_fwd", name)] = row
+        for kname, (ms, plain_ms) in bwd_times.items():
+            require(ms is not None, f"the trace holds no device time for {kname} bf16 at {name}")
+            bound, bound_by = bb[kname]
+            row = {**common, "kernel": kname, "entry": f"imp_{kname}_bf16",
+                   "max_abs_err": errs[kname], "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
+                   "share_of_bound": bound / ms, "pair": pair,
+                   "ptxas": ptxas_lines(build_report, "flash_bwd.cu")}
+            emit(row)
+            rows[(kname, name)] = row
+        require(all(same_bits.values()),
+                f"bf16 entries differ from the fp32 entries on widened operands at {name}: "
+                f"{same_bits}")
+        require(max(errs.values()) <= KERNEL_TOL,
+                f"bf16 entries disagree with the plain versions at {name}: {errs}")
+        require(launched == {"flash_fwd": 1, "flash_fwd_bf16": 1, "flash_bwd_dq": 1,
+                             "flash_bwd_dkv": 1, "flash_bwd_dq_bf16": 1,
+                             "flash_bwd_dkv_bf16": 1}, launched)
+        require(dtypes == ["torch.float32"] * 5, dtypes)
+        require(all(r["share_of_bound"] <= 1.0 for (kn, s), r in rows.items() if s == name),
+                f"a bf16 entry beats its bound at {name}: the bound is wrong")
+        del q, k, v, do, wide, bias, args, o, lse, o_w, lse_w, delta
+        torch.cuda.empty_cache()
+    kernels.reset_launches()  # the comparison launches do not count
+    return rows
+
+
+def phase_trace_sessions(card: str):
+    """What the traced windows of the run lost: per window the primer
+    records missing from its trace (:func:`traced`)."""
+    lost = [launched - seen for launched, seen in TRACE_SESSIONS]
+    row = {"phase": "trace_sessions", "card": card, "sessions": len(lost),
+           "primers": TRACE_PRIMERS, "retraced": sum(1 for _, seen in TRACE_SESSIONS if not seen),
+           "lost_first": lost[:5], "lost_last": lost[-5:], "lost_max": max(lost, default=None),
+           "sessions_with_loss": sum(1 for n in lost if n)}
+    emit(row)
+    return row
+
+
+def bf16_gate(kernel, plain, fp32, names) -> dict:
+    """A bf16 step through the kernels against the same bf16 step through the
+    plain versions and against the fp32 plain step: each tensor (the loss,
+    then every gradient) within ``BF16_GATE`` of its max-abs, and no farther
+    from the fp32 step than twice the plain bf16 step (plus
+    ``BF16_MARGIN``).  Returns the worst of each (for the second: the
+    tensor with the largest share of its allowance, its distance from fp32
+    and the plain bf16 step's) and whether all passed."""
+    worst = {"kernel_vs_plain": (None, 0.0), "kernel_vs_fp32": (None, 0.0, 0.0)}
+    share = -1.0
+    ok = True
+    for n, k, p, x in zip(names, kernel, plain, fp32):
+        k_p, k_x, p_x = rel_err(k, p), rel_err(k, x), rel_err(p, x)
+        ok &= k_p <= BF16_GATE and k_x <= 2 * p_x + BF16_MARGIN
+        if k_p > worst["kernel_vs_plain"][1]:
+            worst["kernel_vs_plain"] = (n, k_p)
+        if k_x / (2 * p_x + BF16_MARGIN) > share:
+            share, worst["kernel_vs_fp32"] = k_x / (2 * p_x + BF16_MARGIN), (n, k_x, p_x)
+    return {"ok": ok, "worst": worst, "tensors": len(names), "gate": BF16_GATE,
+            "margin": BF16_MARGIN}
+
+
+def phase_train_step_bf16(card: str, root: str, out: str):
+    """One step under ``TRAINER.PREC`` bf16 through the kernels (K1-K3's
+    bf16 entries, K4/K5) against the same bf16 step through the plain
+    versions and against the fp32 plain step (:func:`bf16_gate`): UMEML_GAN
+    at batch 8 (UMEML_GAN_THROUGHPUT.yaml) under flash at ``bf16``, and
+    TransMIL at a 10 000-patch slide under flash at ``amp``; then the step
+    time, device busy time, idle share and peak memory of each, beside the
+    same trainer's fp32 step.  Claims nothing."""
+    import torch
+
+    from imp_torch import kernels
+    from imp_torch.engine import build_trainer
+    from imp_torch.engine.precision import amp_call, bf16_matmul_scope
+
+    rows = {}
+    # ---- UMEML_GAN, batch 8, flash, bf16 --------------------------------------
+    trainer, batch, db = mbtrain_for(root, out, "flash", **THROUGHPUT, **{"TRAINER.PREC": "bf16"})
+    model, g = trainer.model, trainer.generator
+    state = g.get_state()
+    names, params = zip(*[(n, p) for n, p in model.named_parameters()
+                          if not n.startswith("gan_discriminator")])
+
+    def gan_loss_and_grads(dtype):
+        g.set_state(state)
+        with bf16_matmul_scope(dtype):
+            enc = amp_call(model, "encode", dtype, db, train=True, generator=g)
+            out_ = amp_call(model, "finish", dtype, enc, db, train=True, replace_ratio=0.0,
+                            generator=g)
+            loss = trainer.task_loss(out_["logits"], db) + out_["modular_loss"] + out_["loss_kd"]
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return [loss.detach()] + [torch.zeros_like(p) if gr is None else gr
+                                  for p, gr in zip(params, grads)]
+
+    # JAX's dtype flow, kept: the zero-padded gene-group mask is an fp32
+    # constant, so the omics encoders and decoder run fp32 (the fp32 entries)
+    # and the path decoder and, in finish (its inputs cast to bf16), the
+    # bottleneck's two TransLayers bf16 (the bf16 entries)
+    rows["umeml_gan"] = bf16_step_row(trainer, batch, db, gan_loss_and_grads, names, {
+        "flash_fwd_bf16": 3, "flash_bwd_dq_bf16": 3, "flash_bwd_dkv_bf16": 3,
+        "flash_fwd": 3, "flash_bwd_dq": 3, "flash_bwd_dkv": 3,
+        "modularity_deg": 1, "modularity_combined": 1},
+        lambda: trainer.train_step(db, train_gan=True, replace_ratio=0.25),
+        FLASH_KERNEL_NAMES + MOD_KERNEL_NAMES, prec="bf16")
+    del trainer, model, db, params
+    torch.cuda.empty_cache()
+
+    # ---- TransMIL, the fullest slide, flash, amp ------------------------------
+    cfg = transmil_cfg(**{"DATASET.ROOT": root, "OUTPUT_DIR": out, "VERBOSE": False, "SEED": 1,
+                          "DATASET.FOLD": 1, "TRAINER.NAME": "TransMIL", "TRAINER.PREC": "amp"})
+    with seeded_bags():
+        trainer = build_trainer(cfg, device=DEVICE)
+        batch = max((b for loader in (trainer.train_loader, trainer.test_loader) for b in loader),
+                    key=lambda b: int(b["img_mask"].sum()))
+    db = trainer._device_batch(batch)
+    model, g = trainer.model, trainer.generator
+    state = g.get_state()
+    names, params = zip(*model.named_parameters())
+
+    def mil_loss_and_grads(dtype):
+        g.set_state(state)
+        with bf16_matmul_scope(dtype):
+            out_ = amp_call(model, "forward", dtype, db, train=True, generator=g)
+            loss = trainer.task_loss(out_, db)
+            grads = torch.autograd.grad(loss, params)
+        return [loss.detach()] + list(grads)
+
+    rows["transmil"] = bf16_step_row(trainer, batch, db, mil_loss_and_grads, names, {
+        "flash_fwd_bf16": 2, "flash_bwd_dq_bf16": 2, "flash_bwd_dkv_bf16": 2},
+        lambda: trainer.train_step(db), FLASH_KERNEL_NAMES, prec="amp")
+    kernels.reset_launches()
+    row = {"phase": "train_step_bf16", "card": card, **rows}
+    emit(row)
+    return row
+
+
+def bf16_step_row(trainer, batch, db, loss_and_grads, names, launches, step, kernel_names,
+                  prec: str) -> dict:
+    """The gate of :func:`phase_train_step_bf16` for one trainer and the
+    timing of its bf16 step beside its fp32 step (the same model, the
+    trainer's compute dtype switched)."""
+    import torch
+
+    from imp_torch import kernels
+
+    kernels.reset_launches()
+    kernel = loss_and_grads(torch.bfloat16)
+    torch.cuda.synchronize()
+    counted = only_launched(kernels.launches())
+    with plain_attention(), plain_modularity():
+        plain = loss_and_grads(torch.bfloat16)
+        fp32 = loss_and_grads(None)
+    gate = bf16_gate(kernel, plain, fp32, ("loss",) + tuple(names))
+    gate["loss"] = {"kernel": kernel[0].item(), "plain": plain[0].item(), "fp32": fp32[0].item()}
+    del kernel, plain, fp32
+    torch.cuda.empty_cache()
+    require(counted == launches, f"kernels of one {prec} step: {counted}, want {launches}")
+    require(gate["ok"], f"{prec} step through the kernels vs the plain versions: {gate}")
+    timing = time_step(step, kernel_names, timed=6)
+    dtype = trainer.cdtype
+    trainer.cdtype = None  # the same trainer's fp32 step
+    try:
+        timing_fp32 = time_step(step, kernel_names, timed=6)
+    finally:
+        trainer.cdtype = dtype
+    b = len(batch["patient_id"])
+    require(timing["loss_finite"] and timing_fp32["loss_finite"], "a step's loss is not finite")
+    return {"prec": prec, "attention": trainer.cfg.TPU.ATTENTION, "batch": b,
+            "bag_valid": [int(x) for x in batch["img_mask"].sum(axis=1)],
+            "launches_per_step": counted, "gate": gate,
+            "bf16": {**timing, "slides_per_s": b / (timing["step_ms_median"] / 1e3)},
+            "fp32": {**timing_fp32, "slides_per_s": b / (timing_fp32["step_ms_median"] / 1e3)}}
+
+
+def phase_train_bf16(card: str, root: str, out: str):
+    """``python -m imp_torch.tools.train`` under ``TRAINER.PREC`` bf16:
+    UMEML_GAN (MBTRAIN, UMEML_GAN.yaml, flash) for 2 epochs, the GAN on and
+    the CCA epoch between, and CMTA (flash) for one epoch at ``fp16``.  Per
+    main step three TransLayers run the bf16 entries and three the fp32
+    ones, as JAX's dtype flow has it (K1 per call, K2/K3 per call with
+    grad), and K4/K5 once; the CCA epoch and the GAN losses run in fp32 as
+    JAX runs them; evaluation runs K1 alone, its bf16 entry included; the
+    metric lines; every checkpoint tensor fp32."""
+    import torch
+
+    from imp_torch.engine.fusion_trainers import CMTA
+    from imp_torch.engine.mbtrain import MBTRAIN
+
+    epochs = TRAIN_EPOCHS_FLASH
+    argv = ["--root", root, "--seed", "1", "--trainer", "MBTRAIN", "--output-dir",
+            os.path.join(out, "umeml_gan"), "--device", DEVICE] + flagship_opts(**{
+                "OPTIM.MAX_EPOCH": epochs, "TRAIN.CURRICULUM.GAN_START_EPOCH": 0,
+                "TRAIN.CURRICULUM.REPLACE_START_EPOCH": 1, "TPU.ATTENTION": "flash",
+                "TRAINER.PREC": "bf16"})
+    result, counts, record, seconds, log = run_trainer(
+        argv, MBTRAIN, ("train_step", "run_epoch_cca", "test"), "chip_smoke_train_bf16_log.txt")
+    steps = [r for r in record if r[0] == "train_step"]
+    cca = [r for r in record if r[0] == "run_epoch_cca"]
+    tests = [r for r in record if r[0] == "test"]
+    # per main step the path decoder and the bottleneck run bf16, the omics
+    # encoders and decoder fp32 (JAX's dtype flow: see phase_train_step_bf16)
+    step_ok = all(d["flash_fwd_bf16"] == d["flash_fwd"] == 3 and c["calls"] == c["grad"] == 6
+                  and d["flash_bwd_dq_bf16"] == d["flash_bwd_dkv_bf16"] == 3
+                  and d["flash_bwd_dq"] == d["flash_bwd_dkv"] == 3
+                  and d["modularity_deg"] == d["modularity_combined"] == 1
+                  for _, d, c, _ in steps)
+    cca_ok = all(d["flash_fwd"] == c["calls"] > 0 and d["flash_fwd_bf16"] == 0
+                 and d["modularity_deg"] == 0 for _, d, c, _ in cca)
+    # evaluation: K1 alone; the whole forward under the policy leaves only
+    # the path decoder bf16 (the bottleneck meets the fp32 omics there)
+    eval_ok = all(d["flash_fwd_bf16"] > 0 and c["grad"] == 0
+                  and d["flash_fwd_bf16"] + d["flash_fwd"] == c["calls"]
+                  and set(only_launched(d)) <= {"flash_fwd_bf16", "flash_fwd"}
+                  for _, d, c, _ in tests)
+    metrics = [{k: float(v) for k, v in m.items()} for _, _, _, m in steps]
+    cindex = [line for line in log.splitlines() if line.startswith("* cindex:")]
+    ckpt = checkpoint_dtypes(os.path.join(out, "umeml_gan"))
+    umeml_gan = {
+        "argv_prec": "bf16", "epochs": epochs, "main_steps": len(steps),
+        "gan_steps": sum("loss_gen" in m for m in metrics), "cca_epochs": len(cca),
+        "evaluations": len(tests), "launches": counts, "per_step_ok": step_ok,
+        "cca_fp32_entries_ok": cca_ok, "eval_K1_bf16_only": eval_ok,
+        "translayer_calls_per_step": sorted({c["calls"] for _, _, c, _ in steps}),
+        "losses_finite": all(np.isfinite(list(m.values())).all() for m in metrics),
+        "cindex_lines": cindex, "result_cindex": result, "checkpoint": ckpt, "seconds": seconds,
+    }
+    # ---- CMTA at fp16 (bf16) --------------------------------------------------
+    cmta_out = os.path.join(out, "cmta")
+    result_c, counts_c, record_c, seconds_c, log_c = run_trainer(
+        zoo_argv(root, cmta_out, "CMTA", "Survival", "TPU.ATTENTION", "flash", "TRAINER.PREC",
+                 "fp16"), CMTA, ("train_step", "test", "_eval_batch"),
+        "chip_smoke_train_cmta_fp16_log.txt")
+    c_steps = [r for r in record_c if r[0] == "train_step"]
+    c_tests = [r for r in record_c if r[0] == "test"]
+    c_batches = sum(r[0] == "_eval_batch" for r in record_c)
+    c_step_ok = all(only_launched(d) == {"flash_fwd_bf16": 8, "flash_bwd_dq_bf16": 8,
+                                         "flash_bwd_dkv_bf16": 8} for _, d, _, _ in c_steps)
+    c_eval = only_launched({k: sum(d[k] for _, d, _, _ in c_tests) for k in counts_c})
+    c_losses = [float(m["loss"]) for _, _, _, m in c_steps]
+    cmta = {
+        "argv_prec": "fp16", "train_steps": len(c_steps), "eval_batches": c_batches,
+        "launches": counts_c, "per_step_ok": c_step_ok, "eval_launches": c_eval,
+        "losses_finite": bool(np.isfinite(c_losses).all()),
+        "cindex_lines": [line for line in log_c.splitlines() if line.startswith("* C-Index:")],
+        "result_cindex": result_c, "checkpoint": checkpoint_dtypes(cmta_out),
+        "seconds": seconds_c,
+    }
+    row = {"phase": "train_bf16", "card": card, "entry": "python -m imp_torch.tools.train",
+           "umeml_gan": umeml_gan, "cmta": cmta,
+           "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit(row)
+    require(len(steps) > 0 and step_ok, f"bf16 entries per UMEML_GAN main step: {umeml_gan}")
+    require(len(cca) == epochs - 1 and cca_ok, f"the CCA epoch at fp32: {umeml_gan}")
+    require(len(tests) > 0 and eval_ok, f"K1's bf16 entry per evaluation: {umeml_gan}")
+    require(umeml_gan["losses_finite"] and umeml_gan["gan_steps"] > 0
+            and len(cindex) >= epochs + 1 and result is not None, umeml_gan)
+    require(ckpt["all_fp32"] and ckpt["epoch"] == epochs, ckpt)
+    require(len(c_steps) > 0 and c_step_ok and c_batches > 0
+            and c_eval == {"flash_fwd_bf16": 8 * c_batches}, f"CMTA at fp16: {cmta}")
+    require(cmta["losses_finite"] and result_c is not None and len(cmta["cindex_lines"]) >= 2
+            and cmta["checkpoint"]["all_fp32"], cmta)
+    return row, {k: counts[k] + counts_c[k] for k in counts}
+
+
+def checkpoint_dtypes(out: str) -> dict:
+    """The last checkpoint's epoch and whether every floating tensor of its
+    model state is fp32 (the parameters stay fp32 under bf16)."""
+    import torch
+
+    mdir = os.path.join(out, "model")
+    with open(os.path.join(mdir, "checkpoint")) as f:
+        name = f.read().strip()
+    state = torch.load(os.path.join(mdir, name), map_location="cpu", weights_only=True)
+    dtypes = sorted({str(t.dtype) for t in state["model"].values() if t.is_floating_point()})
+    return {"name": name, "epoch": int(state["epoch"]), "dtypes": dtypes,
+            "all_fp32": dtypes == ["torch.float32"]}
+
+
+BSM = {"DATASET.USE_BSM": True, "DATASET.BS_MICRO": 512}
+
+
+@contextlib.contextmanager
+def plain_everything():
+    """Every kernel wrapper routed to its plain version (flash, modularity,
+    the pseudo-inverse)."""
+    with plain_attention(), plain_modularity(), chain_pinv():
+        yield
+
+
+def phase_umeml_bsm(card: str, root: str, out: str):
+    """UMEML (UMEML.yaml, batch 2, bags padded to 10 000) with ``USE_BSM`` at
+    ``BS_MICRO`` 512 (20 chunks of 512 tokens), every pseudo-inverse fused:
+    one step at a fixed permutation through the kernels against the plain
+    versions (loss and every gradient within STEP_TOL, or
+    :func:`float64_check`), its launches per step (K4 and K5 once per chunk,
+    K6 and K7 once per TransLayer call per chunk), and its step time."""
+    import torch
+
+    from imp_torch import kernels
+
+    clock = [time.perf_counter()]
+    with pinv_mode("fused"):
+        trainer, batch, db = mbtrain_for(root, out, **UMEML, **BSM)
+    model, g = trainer.model, trainer.generator
+    require(fused_pinvs(model) == 6, "UMEML has six Nyström TransLayers, all fused")
+    n = db["img"].shape[1]
+    chunks = -(-n // BSM["DATASET.BS_MICRO"])
+    perm = torch.randperm(chunks * BSM["DATASET.BS_MICRO"],
+                          generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
+    state = g.get_state()
+    names = [nm for nm, _ in model.named_parameters()]
+
+    def loss_and_grads(model=model, db=db):
+        g.set_state(state)
+        params = [dict(model.named_parameters())[nm] for nm in names]
+        saved, trainer.model = trainer.model, model
+        try:
+            loss = trainer.bsm_loss(db, perm)
+        finally:
+            trainer.model = saved
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if gr is None else gr for p, gr in zip(params, grads)]
+        return loss.detach(), {}, grads
+
+    clock.append(time.perf_counter())
+    check, counted = grads_check(loss_and_grads, plain_everything, names)
+    clock.append(time.perf_counter())
+    want = {"modularity_deg": chunks, "modularity_combined": chunks,
+            "pinv_fwd": 6 * chunks, "pinv_bwd": 6 * chunks}
+    require(only_launched(counted) == want, f"kernels of one BSM step: {counted}, want {want}")
+    if check["grad_rel"] > STEP_TOL:
+        check["float64"] = float64_check(loss_and_grads, model, db, plain_everything, names)
+    require(check["loss_rel"] <= STEP_TOL
+            and (check["grad_rel"] <= STEP_TOL or check["float64"]["ok"]),
+            f"BSM step through the kernels vs the plain versions: {check}")
+    kernels.reset_launches()
+    clock.append(time.perf_counter())
+    # one traced step: a BSM step is 20 chunks' worth of kernels
+    timing = time_step(lambda: trainer.train_step(db), MOD_KERNEL_NAMES + PINV_KERNEL_NAMES,
+                       timed=4, traced=1)
+    clock.append(time.perf_counter())
+    b = len(batch["patient_id"])
+    row = {"phase": "umeml_bsm", "card": card, "config": "configs/Survival/UMEML.yaml",
+           "use_bsm": True, "bs_micro": BSM["DATASET.BS_MICRO"], "chunks": chunks,
+           "alpha": float(trainer.cfg.MODEL.UMEML.ALPHA), "batch": b, "bag_pad": n,
+           "bag_valid": [int(x) for x in batch["img_mask"].sum(axis=1)],
+           "launches_per_step": counted, "check": check, **timing,
+           "slides_per_s": b / (timing["step_ms_median"] / 1e3),
+           "seconds": dict(zip(("build", "check", "float64", "timing"),
+                               np.diff(clock).tolist()))}
+    emit(row)
+    require(timing["loss_finite"], row)
+    return row
+
+
+def variant_grads(model, db, g, state, task_loss):
+    """Loss and the gradient of every parameter (by name) of one main-loss
+    forward at replace ratio 0 with the generator at ``state``."""
+    import torch
+
+    g.set_state(state)
+    enc = model.encode(db, train=True, generator=g)
+    out_ = model.finish(enc, db, train=True, replace_ratio=0.0, generator=g)
+    loss = task_loss(out_["logits"], db) + out_["modular_loss"] + out_["loss_kd"]
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return loss.detach(), {n: torch.zeros_like(p) if gr is None else gr
+                           for n, p, gr in zip(names, params, grads)}
+
+
+def twin_name(name: str):
+    """(stacked name, twin index) of a twin-layout parameter, else (name, None)."""
+    from imp_torch.convert import STACKED_TWINS
+
+    top, _, rest = name.partition(".")
+    for pair, twins in STACKED_TWINS.items():
+        if top in twins:
+            return f"{pair}.layer.{rest}", twins.index(top)
+    return name, None
+
+
+def phase_umeml_gan_variants(card: str, root: str, out: str):
+    """UMEML_GAN at batch 8 (UMEML_GAN_THROUGHPUT.yaml), under ``auto`` and
+    flash, its variants at the default model's weights, dropout off (the
+    variants draw their masks in other shapes): ``head_fused=False`` and
+    ``stacked_pairs=True`` (twin weights stacked) within STEP_TOL of the
+    default model in loss and every gradient; ``bag_dtype=bfloat16`` at the
+    bf16 gate (:func:`bf16_gate`: through the kernels against the plain
+    versions, and against the fp32 default model through them); a trainer built with ``MODEL.INIT_WEIGHTS`` from the
+    first's checkpoint gives its eval logits bit for bit; ``umeml_gan_plot``'s
+    similarity grids are [B, 7, 7] and finite, and whether its PNGs were
+    written (none without matplotlib)."""
+    import torch
+
+    from imp_torch.convert import stack_twins
+    from imp_torch.models import build_model, survival_num_classes
+    from imp_torch.ops.attention import ExactSelfAttention, NystromAttention
+    from imp_torch.utils.checkpoint import save_checkpoint
+
+    def no_dropout(model):
+        model.dropout_rate = 0.0
+        for m in model.modules():
+            if isinstance(m, (NystromAttention, ExactSelfAttention)):
+                m.dropout = 0.0
+        return model
+
+    rows = {}
+    for attention in ("auto", "flash"):
+        trainer, batch, db = mbtrain_for(root, out, attention, **THROUGHPUT)
+        base, g, cfg = no_dropout(trainer.model), trainer.generator, trainer.cfg
+        state = g.get_state()
+        weights = {k: v.clone() for k, v in base.state_dict().items()}
+        loss0, grads0 = variant_grads(base, db, g, state, trainer.task_loss)
+        checks = {}
+        for label, variant in (("head_fused_false", {"head_fused": False}),
+                               ("stacked_pairs", {"stacked_pairs": True}),
+                               ("bag_bf16", {"bag_dtype": torch.bfloat16})):
+            model = no_dropout(build_model(
+                "umeml_gan", cfg=cfg, num_classes=survival_num_classes(cfg.TASK.NAME, 0),
+                gene_group_indexes=trainer.dm.gene_group_indexes, device=DEVICE, **variant))
+            model.load_state_dict(stack_twins(weights) if "stacked_pairs" in variant else weights,
+                                  strict=True)
+            loss, grads = variant_grads(model, db, g, state, trainer.task_loss)
+            if "bag_dtype" in variant:  # the bf16 gate: kernels vs plain, and vs fp32
+                with plain_everything():
+                    loss_p, grads_p = variant_grads(model, db, g, state, trainer.task_loss)
+                    loss_x, grads_x = variant_grads(base, db, g, state, trainer.task_loss)
+                names = list(grads)
+                checks[label] = bf16_gate([loss] + [grads[n] for n in names],
+                                          [loss_p] + [grads_p[n] for n in names],
+                                          [loss_x] + [grads_x[n] for n in names],
+                                          ["loss"] + names)
+                require(checks[label]["ok"], f"{label} ({attention}): {checks[label]}")
+                del model, grads, grads_p, grads_x
+                torch.cuda.empty_cache()
+                continue
+            errs = {}
+            for n, want in grads0.items():
+                key, i = twin_name(n) if "stacked_pairs" in variant else (n, None)
+                errs[n] = rel_err(grads[key] if i is None else grads[key][i], want)
+            worst = max(errs, key=errs.get)
+            checks[label] = {"loss_rel": rel_err(loss, loss0), "grad_rel": errs[worst],
+                             "worst_param": worst, "params": len(errs), "tol_rel": STEP_TOL}
+            require(checks[label]["loss_rel"] <= STEP_TOL and errs[worst] <= STEP_TOL,
+                    f"{label} vs the default model ({attention}): {checks[label]}")
+            del model, grads
+            torch.cuda.empty_cache()
+        # ---- MODEL.INIT_WEIGHTS from the first trainer's checkpoint -------------
+        mdir = os.path.join(out, f"init_weights_{attention}", "model")
+        save_checkpoint(trainer.state_dict(), mdir, 1)
+        second, _, _ = mbtrain_for(root, os.path.join(out, f"second_{attention}"), attention,
+                                   **THROUGHPUT, **{"MODEL.INIT_WEIGHTS": mdir, "SEED": 7})
+        trainer.model.load_state_dict(weights)
+        with torch.no_grad():
+            first_logits = trainer.model(db)["logits"]
+            second_logits = second.model(db)["logits"]
+        init_same = bool(torch.equal(first_logits, second_logits))
+        del second
+        # ---- umeml_gan_plot ----------------------------------------------------
+        plot, pbatch, _ = mbtrain_for(root, os.path.join(out, f"plot_{attention}"), attention,
+                                      **THROUGHPUT, **{"MODEL.NAME": "umeml_gan_plot"})
+        grids = plot.similarity_grids(pbatch)
+        with seeded_bags():
+            plot._plot_similarity(plot.test_loader)
+        plot_dir = os.path.join(plot.output_dir, "plots")
+        pngs = len(os.listdir(plot_dir)) if os.path.isdir(plot_dir) else 0
+        try:
+            import matplotlib  # noqa: F401
+            have_matplotlib = True
+        except ImportError:
+            have_matplotlib = False
+        rows[attention] = {
+            "batch": len(batch["patient_id"]), "variants": checks,
+            "init_weights_same_eval_logits": init_same,
+            "plot": {"grid_shape": list(grids.shape), "finite": bool(torch.isfinite(grids).all()),
+                     "matplotlib": have_matplotlib, "pngs_written": pngs},
+        }
+        require(init_same, f"MODEL.INIT_WEIGHTS: other eval logits ({attention})")
+        require(list(grids.shape) == [len(pbatch["patient_id"]), 7, 7]
+                and rows[attention]["plot"]["finite"], rows[attention]["plot"])
+        require(have_matplotlib or pngs == 0, rows[attention]["plot"])
+        del trainer, plot, base, db
+        torch.cuda.empty_cache()
+    row = {"phase": "umeml_gan_variants", "card": card, **rows}
+    emit(row)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -3021,11 +3755,21 @@ def main() -> int:
                                        os.path.join(tmp, "cmta_nystrom"), attention="auto")
         clocked("train_step_cmta", phase_train_step_cmta, card, root,
                 os.path.join(tmp, "cmta_step"))
+        clocked("train_step_bf16", phase_train_step_bf16, card, root,
+                os.path.join(tmp, "bf16_step"))
+        _, bf16_counts = clocked("train_bf16", phase_train_bf16, card, root,
+                                 os.path.join(tmp, "bf16"))
+        clocked("umeml_bsm", phase_umeml_bsm, card, root, os.path.join(tmp, "bsm"))
+        clocked("umeml_gan_variants", phase_umeml_gan_variants, card, root,
+                os.path.join(tmp, "variants"))
         clocked("clip_vit_b16", phase_clip_vit_b16, card)
         clocked("clip_rn50", phase_clip_rn50, card)
         clocked("train_clipomic", phase_train_clipomic, card, root, os.path.join(tmp, "clipomic"))
         _, plip_counts = clocked("plip_umeml_gan", phase_plip_umeml_gan, card, root,
                                  os.path.join(tmp, "plip"))
+    # last, where the profiler loses the most records (traced)
+    bf16_rows = clocked("kernel_flash_bf16", phase_flash_bf16, card, report)
+    clocked("trace_sessions", phase_trace_sessions, card)
     emit({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t0})
 
     def cmta_entry(name):
@@ -3044,6 +3788,24 @@ def main() -> int:
 
     def per_forward(key):
         return sum(krows[s][key] * n for s, n in FLASH_PER_FORWARD.items())
+
+    def bf16_entry(name):
+        """The kernel's bf16 entry: its launches in the bf16 CLI runs
+        (UMEML_GAN and CMTA) and its times at TransMIL's bag."""
+        main = bf16_rows[(name, BF16_MAIN_SHAPE)]
+        return {"entry": main["entry"], "launches": bf16_counts[BF16_ENTRIES[name]],
+                "shape": BF16_MAIN_SHAPE, "ms": main["ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "library_ms": main["library_ms"] if name == "flash_fwd"
+                else main["pair"]["library_ms"],
+                **({"pair": main["pair"]} if "pair" in main else {
+                    "library_bf16_ms": main["library_bf16_ms"],
+                    "library_bf16_note": main["library_bf16_note"]}),
+                "same_bits_as_f32_entry": all(
+                    all(r["same_bits_as_f32_entry"].values())
+                    for (k, _), r in bf16_rows.items() if k == name),
+                "max_abs_err": max(r["max_abs_err"] for (k, _), r in bf16_rows.items()
+                                   if k == name)}
 
     def modularity_entry(name):
         main = mrows[(name, MOD_MAIN_SHAPE)]
@@ -3069,7 +3831,7 @@ def main() -> int:
             "bound_by": main["bound_by"], "library_ms": main["library_ms"], "pair": main["pair"],
             "share_of_bound": main["share_of_bound"],
             "dynamic_smem_bytes": main["dynamic_smem_bytes"], "ptxas": main["ptxas"],
-            "cmta": cmta_entry(name),
+            "cmta": cmta_entry(name), "bf16": bf16_entry(name),
         }
 
     def pinv_entry(name):
@@ -3096,7 +3858,7 @@ def main() -> int:
             "bound_by": "bytes" if all(krows[s]["bound_by"] == "bytes" for s in FLASH_PER_FORWARD)
             else "operations",
             "library_ms": per_forward("library_ms"),
-            "cmta": cmta_entry("flash_fwd"),
+            "cmta": cmta_entry("flash_fwd"), "bf16": bf16_entry("flash_fwd"),
         },
         *(flash_bwd_entry(n) for n in ("flash_bwd_dq", "flash_bwd_dkv")),
         modularity_entry("modularity_deg"),

@@ -24,6 +24,12 @@ flax on the JAX side: this package needs no flax) and return the port's
   ``score``, ``MaxLinear_0`` (SNN blocks with ``init_max_weights``) ``fc``;
   HFB's ``batch_stats`` ``norm/mean`` and ``norm/var`` become the buffers
   ``norm.running_mean`` and ``norm.running_var``;
+* UMEML_GAN's stacked twins (``STACKED_PAIRS``: ``pair_decoder``,
+  ``pair_norm``, ``pair_explainer``, each leaf with a leading axis of 2)
+  become the port's :class:`~imp_torch.models.layers.Stacked` modules
+  (``pair_decoder.layer.…``), a stacked kernel transposed in its last two
+  axes; :func:`stack_twins` turns the port's twin layout into the stacked
+  one;
 * UMEML_GAN's ``GroupedLinear`` (``omic_net``), the packed MHA ``in_proj_weight``
   (``[e, 3e]`` in both), ``res_conv``, ``p_proto``, the encoder tokens and
   ``bottle_tokens`` carry over as they are, and so do TransMIL's
@@ -53,17 +59,23 @@ _LIST_MEMBER = re.compile(r"^(proto_g_blocks|omic_encoder|encoders|resblocks|lay
 _AUTO_NAMED = {"LayerNorm_0": "norm", "TorchLinear_0": "fc", "TorchLinear_1": "score",
                "MaxLinear_0": "fc"}
 _BATCH_STATS = {"mean": "running_mean", "var": "running_var"}
+#: UMEML_GAN's stacked twins and their twin-layout pairs (path first)
+STACKED_TWINS = {"pair_decoder": ("path_decoder", "omic_decoder"),
+                 "pair_norm": ("layer_norm_p", "layer_norm_o"),
+                 "pair_explainer": ("explainer_path", "explainer_omic")}
 
 
 def _torch_key(flax_key: str, grouped_omic: bool = True):
-    """(torch key, transpose?) for one flattened flax key; ``grouped_omic``:
-    ``omic_net`` is UMEML_GAN's GroupedLinear, whose kernel is kept as it is
-    (UMEML's is a TorchLinear)."""
+    """(torch key, transpose) for one flattened flax key: transpose is
+    False, True, or ``"stacked"`` (a kernel of a stacked twin: its last two
+    axes); ``grouped_omic``: ``omic_net`` is UMEML_GAN's GroupedLinear,
+    whose kernel is kept as it is (UMEML's is a TorchLinear)."""
     parts = flax_key.split("/")
     if parts[0] not in ("params", "batch_stats") or len(parts) < 2:
         raise KeyError(f"not a flax variable key: {flax_key!r}")
     collection, parts = parts[0], parts[1:]
-    out = []
+    stacked = parts[0] in STACKED_TWINS
+    out = [parts.pop(0), "layer"] if stacked else []
     for p in parts[:-1]:
         m = _LIST_MEMBER.match(p)
         if m:
@@ -75,7 +87,7 @@ def _torch_key(flax_key: str, grouped_omic: bool = True):
     if collection == "batch_stats":
         leaf = _BATCH_STATS[leaf]
     elif leaf == "kernel" and not (grouped_omic and parts[:-1] == ["omic_net"]):
-        leaf, transpose = "weight", True
+        leaf, transpose = "weight", "stacked" if stacked else True
     elif leaf == "scale":
         leaf = "weight"
     return ".".join(out + [leaf]), transpose
@@ -113,8 +125,26 @@ def _expected(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Size]:
             n_proto=n_proto,
             n_reg=shape("params/bottleattn/bottle_tokens")[1],
             fusion=_fusion(flat),
+            stacked_pairs=any(k.startswith("params/pair_decoder/") for k in flat),
         )
     return {k: v.shape for k, v in model.state_dict().items()}
+
+
+def stack_twins(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A UMEML_GAN ``state_dict`` in the twin layout as the stacked one
+    (``stacked_pairs=True``): each twin pair's tensors stacked, path twin
+    first, under ``pair_*.layer``; every other tensor as it is."""
+    out = {}
+    for key, value in state.items():
+        top, _, rest = key.partition(".")
+        for pair, (first, second) in STACKED_TWINS.items():
+            if top == first:
+                out[f"{pair}.layer.{rest}"] = torch.stack([value, state[f"{second}.{rest}"]])
+            if top in (first, second):
+                break
+        else:
+            out[key] = value
+    return out
 
 
 def _mil_expected(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Size]:
@@ -364,7 +394,9 @@ def _state_dict(flat: Dict[str, np.ndarray], expected: Dict[str, torch.Size],
         if tkey not in expected:
             raise KeyError(f"flax key {key!r} -> {tkey!r} has no counterpart in the port")
         arr = np.asarray(value, dtype=np.float32)
-        if transpose:  # Dense [in, out] -> [out, in]; Conv HWIO -> OIHW
+        if transpose == "stacked":  # [2, in, out] -> [2, out, in]
+            arr = np.swapaxes(arr, -1, -2)
+        elif transpose:  # Dense [in, out] -> [out, in]; Conv HWIO -> OIHW
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         t = torch.tensor(arr)  # a copy, contiguous
         if t.shape != expected[tkey]:

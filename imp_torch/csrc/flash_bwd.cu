@@ -1,5 +1,7 @@
-// Masked flash-attention backward for Hopper (sm_90a), fp32 in and out:
-// two kernels, launched one after the other by the same wrapper.
+// Masked flash-attention backward for Hopper (sm_90a): two kernels, launched
+// one after the other by the same wrapper. q, k, v in fp32 (the _f32
+// entries) or bf16 (the _bf16 entries); bias, dO, lse, delta and the
+// gradients fp32.
 //
 //  * dq_kernel replaces imp_tpu/ops/flash_attention.py:104 _make_dq_kernel (K2)
 //  * dkv_kernel replaces imp_tpu/ops/flash_attention.py:144 _make_dkv_kernel (K3)
@@ -63,6 +65,12 @@
 //    loading it (a block vote over its 64 biases); K3 writes zeros for such
 //    a tile and returns. A slide with no valid key sweeps every key (P = 1).
 //    The mask is any bias row: the vote is per tile, never from a length.
+//
+//  * The bf16 entries (TRAINER.PREC bf16; the TPU kernels' contract under
+//    mxu_precision="fp32": q, k, v read as bf16, dO cast to fp32 by the
+//    caller, fp32 gradients) widen q, k and v exactly to fp32 as they stage
+//    them, so they give the fp32 entries' bits on widened copies; only the
+//    operand bytes of q, k, v halve.
 //
 // The products, fragment loaders, copies and the masked-tile vote live in
 // tf32x3.cuh, shared with K1 (flash_fwd.cu).
@@ -143,10 +151,11 @@ __device__ __forceinline__ void dq_tile(const float* qt, const float* ot, const 
 }
 
 // One CTA per (b, h, tile of kTile queries); sweeps the live key tiles.
-template <int D>
+// T is the element type of q, k and v (float or __nv_bfloat16).
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const float* __restrict__ bias,
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const float* __restrict__ bias,
           const float* __restrict__ dout, const float* __restrict__ lse,
           const float* __restrict__ delta, float* __restrict__ dq, int H, int Nq, int Nk) {
   constexpr int S = D + kPad, TILE = kTile * S, KS = D / 8;
@@ -160,8 +169,8 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.z;
   const size_t bh = (size_t)b * H + blockIdx.y;
   const int q0 = blockIdx.x * kTile;
-  const float* kb = k + bh * Nk * D;
-  const float* vb = v + bh * Nk * D;
+  const T* kb = k + bh * Nk * D;
+  const T* vb = v + bh * Nk * D;
   const float* biasb = bias + (size_t)b * Nk;
   const int nt = (Nk + kTile - 1) / kTile;
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
@@ -294,10 +303,10 @@ __device__ __forceinline__ void dkv_tile(const float* kt, const float* vt, const
 }
 
 // One CTA per (b, h, tile of kTile keys); sweeps every query tile.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ bias,
+dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, const float* __restrict__ bias,
            const float* __restrict__ dout, const float* __restrict__ lse,
            const float* __restrict__ delta, float* __restrict__ dk,
            float* __restrict__ dv, int H, int Nq, int Nk) {
@@ -335,7 +344,7 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     return;
   }
 
-  const float* qb = q + bh * Nq * D;
+  const T* qb = q + bh * Nq * D;
   const float* ob = dout + bh * Nq * D;
   const float* lb = lse + bh * Nq;
   const float* db = delta + bh * Nq;
@@ -406,28 +415,48 @@ constexpr size_t dkv_smem_bytes() {
   return (6 * kTile * (D + kPad) + 4 * kTile) * sizeof(float);
 }
 
-template <int D>
-int launch_dq(const float* q, const float* k, const float* v, const float* bias,
-              const float* dout, const float* lse, const float* delta, float* dq, int B, int H,
-              int Nq, int Nk, cudaStream_t s) {
-  const int set = allow_smem(dq_kernel<D>, dq_smem_bytes<D>());
+template <int D, typename T>
+int launch_dq(const T* q, const T* k, const T* v, const float* bias, const float* dout,
+              const float* lse, const float* delta, float* dq, int B, int H, int Nq, int Nk,
+              cudaStream_t s) {
+  const int set = allow_smem(dq_kernel<D, T>, dq_smem_bytes<D>());
   if (set) return set;
   const dim3 grid((Nq + kTile - 1) / kTile, H, B);
-  dq_kernel<D><<<grid, kThreads, dq_smem_bytes<D>(), s>>>(q, k, v, bias, dout, lse, delta, dq,
-                                                           H, Nq, Nk);
+  dq_kernel<D, T><<<grid, kThreads, dq_smem_bytes<D>(), s>>>(q, k, v, bias, dout, lse, delta,
+                                                              dq, H, Nq, Nk);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_dkv(const float* q, const float* k, const float* v, const float* bias,
-               const float* dout, const float* lse, const float* delta, float* dk, float* dv,
-               int B, int H, int Nq, int Nk, cudaStream_t s) {
-  const int set = allow_smem(dkv_kernel<D>, dkv_smem_bytes<D>());
+template <int D, typename T>
+int launch_dkv(const T* q, const T* k, const T* v, const float* bias, const float* dout,
+               const float* lse, const float* delta, float* dk, float* dv, int B, int H, int Nq,
+               int Nk, cudaStream_t s) {
+  const int set = allow_smem(dkv_kernel<D, T>, dkv_smem_bytes<D>());
   if (set) return set;
   const dim3 grid((Nk + kTile - 1) / kTile, H, B);
-  dkv_kernel<D><<<grid, kThreads, dkv_smem_bytes<D>(), s>>>(q, k, v, bias, dout, lse, delta, dk,
-                                                             dv, H, Nq, Nk);
+  dkv_kernel<D, T><<<grid, kThreads, dkv_smem_bytes<D>(), s>>>(q, k, v, bias, dout, lse, delta,
+                                                                dk, dv, H, Nq, Nk);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dq_entry(const T* q, const T* k, const T* v, const float* bias, const float* dout,
+             const float* lse, const float* delta, float* dq, int B, int H, int Nq, int Nk,
+             int D, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 32) return launch_dq<32>(q, k, v, bias, dout, lse, delta, dq, B, H, Nq, Nk, s);
+  if (D == 64) return launch_dq<64>(q, k, v, bias, dout, lse, delta, dq, B, H, Nq, Nk, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int dkv_entry(const T* q, const T* k, const T* v, const float* bias, const float* dout,
+              const float* lse, const float* delta, float* dk, float* dv, int B, int H, int Nq,
+              int Nk, int D, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 32) return launch_dkv<32>(q, k, v, bias, dout, lse, delta, dk, dv, B, H, Nq, Nk, s);
+  if (D == 64) return launch_dkv<64>(q, k, v, bias, dout, lse, delta, dk, dv, B, H, Nq, Nk, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -440,10 +469,7 @@ extern "C" int imp_flash_bwd_dq_f32(const float* q, const float* k, const float*
                                     const float* bias, const float* dout, const float* lse,
                                     const float* delta, float* dq, int B, int H, int Nq,
                                     int Nk, int D, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 32) return launch_dq<32>(q, k, v, bias, dout, lse, delta, dq, B, H, Nq, Nk, s);
-  if (D == 64) return launch_dq<64>(q, k, v, bias, dout, lse, delta, dq, B, H, Nq, Nk, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dq_entry(q, k, v, bias, dout, lse, delta, dq, B, H, Nq, Nk, D, stream);
 }
 
 // the same inputs; dk, dv [B,H,Nk,D]
@@ -451,10 +477,26 @@ extern "C" int imp_flash_bwd_dkv_f32(const float* q, const float* k, const float
                                      const float* bias, const float* dout, const float* lse,
                                      const float* delta, float* dk, float* dv, int B, int H,
                                      int Nq, int Nk, int D, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 32) return launch_dkv<32>(q, k, v, bias, dout, lse, delta, dk, dv, B, H, Nq, Nk, s);
-  if (D == 64) return launch_dkv<64>(q, k, v, bias, dout, lse, delta, dk, dv, B, H, Nq, Nk, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dkv_entry(q, k, v, bias, dout, lse, delta, dk, dv, B, H, Nq, Nk, D, stream);
+}
+
+// The same two with q, k, v in bf16 (contiguous, 16-byte aligned); dO, lse,
+// delta and the gradients stay fp32. They give the _f32 entries' bits on
+// fp32 copies of q, k, v.
+extern "C" int imp_flash_bwd_dq_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                     const __nv_bfloat16* v, const float* bias,
+                                     const float* dout, const float* lse, const float* delta,
+                                     float* dq, int B, int H, int Nq, int Nk, int D,
+                                     void* stream) {
+  return dq_entry(q, k, v, bias, dout, lse, delta, dq, B, H, Nq, Nk, D, stream);
+}
+
+extern "C" int imp_flash_bwd_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                      const __nv_bfloat16* v, const float* bias,
+                                      const float* dout, const float* lse, const float* delta,
+                                      float* dk, float* dv, int B, int H, int Nq, int Nk, int D,
+                                      void* stream) {
+  return dkv_entry(q, k, v, bias, dout, lse, delta, dk, dv, B, H, Nq, Nk, D, stream);
 }
 
 // The launch layout, for reports and tests: the rows a CTA owns and sweeps

@@ -1,4 +1,5 @@
-// Masked flash-attention forward for Hopper (sm_90a), fp32 in and out (K1).
+// Masked flash-attention forward for Hopper (sm_90a) (K1): q, k, v in fp32
+// (imp_flash_fwd_f32) or bf16 (imp_flash_fwd_bf16); bias, O and lse fp32.
 //
 // Replaces the Pallas TPU kernel imp_tpu/ops/flash_attention.py::_make_fwd_kernel
 // (launched by _fwd_impl). Same contract: for pre-scaled q and an additive
@@ -39,6 +40,15 @@
 //    P = 0 exactly. A slide with no valid key sweeps every key.
 //  * The bias of a key past Nk is set to -inf explicitly (cp.async fills
 //    zeros, which would read as a valid key), so it gets P = 0.
+//
+//  * The bf16 entry (TRAINER.PREC bf16: the TPU kernel's contract under
+//    mxu_precision="fp32", q, k, v read as bf16 and widened in the kernel
+//    body) widens q, k and v exactly to fp32 as it stages them
+//    (tf32x3.cuh), so its shared tiles and arithmetic are the fp32 entry's
+//    and it gives the fp32 entry's bits on widened copies. It moves half the
+//    operand bytes for the same products. A bf16 value has a zero low TF32
+//    split, so two of its three Q.K^T passes add zeros: using that is left
+//    for later (ROADMAP §B item 3).
 //
 // Left for later: wgmma with TMA, warp specialisation, persistent CTAs.
 #include <cuda_runtime.h>
@@ -131,10 +141,11 @@ __device__ __forceinline__ void fwd_tile(const float* qt, const float* kt, const
 }
 
 // One CTA per (b, h, tile of kTile queries); sweeps the live key tiles.
-template <int D>
+// T is the element type of q, k and v (float or __nv_bfloat16).
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ bias,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ bias,
                  float* __restrict__ o, float* __restrict__ lse, int H, int Nq, int Nk) {
   constexpr int S = D + kPad, TILE = kTile * S, KS = D / 8;
   extern __shared__ __align__(16) float smem[];
@@ -146,8 +157,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.z;
   const size_t bh = (size_t)b * H + blockIdx.y;
   const int q0 = blockIdx.x * kTile;
-  const float* kb = k + bh * Nk * D;
-  const float* vb = v + bh * Nk * D;
+  const T* kb = k + bh * Nk * D;
+  const T* vb = v + bh * Nk * D;
   const float* biasb = bias + (size_t)b * Nk;
   const int nt = (Nk + kTile - 1) / kTile;
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
@@ -215,15 +226,24 @@ constexpr size_t fwd_smem_bytes() {
   return (5 * kTile * (D + kPad) + 2 * kTile) * sizeof(float);
 }
 
-template <int D>
-int launch_fwd(const float* q, const float* k, const float* v, const float* bias, float* o,
-               float* lse, int B, int H, int Nq, int Nk, cudaStream_t s) {
-  const int set = allow_smem(flash_fwd_kernel<D>, fwd_smem_bytes<D>());
+template <int D, typename T>
+int launch_fwd(const T* q, const T* k, const T* v, const float* bias, float* o, float* lse,
+               int B, int H, int Nq, int Nk, cudaStream_t s) {
+  const int set = allow_smem(flash_fwd_kernel<D, T>, fwd_smem_bytes<D>());
   if (set) return set;
   const dim3 grid((Nq + kTile - 1) / kTile, H, B);
-  flash_fwd_kernel<D><<<grid, kThreads, fwd_smem_bytes<D>(), s>>>(q, k, v, bias, o, lse, H,
-                                                                  Nq, Nk);
+  flash_fwd_kernel<D, T><<<grid, kThreads, fwd_smem_bytes<D>(), s>>>(q, k, v, bias, o, lse,
+                                                                     H, Nq, Nk);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int fwd_entry(const T* q, const T* k, const T* v, const float* bias, float* o, float* lse,
+              int B, int H, int Nq, int Nk, int D, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 32) return launch_fwd<32>(q, k, v, bias, o, lse, B, H, Nq, Nk, s);
+  if (D == 64) return launch_fwd<64>(q, k, v, bias, o, lse, B, H, Nq, Nk, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -236,10 +256,16 @@ extern "C" int imp_flash_fwd_f32(const float* q, const float* k, const float* v,
                                  const float* bias, float* o, float* lse,
                                  int B, int H, int Nq, int Nk, int D,
                                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 32) return launch_fwd<32>(q, k, v, bias, o, lse, B, H, Nq, Nk, s);
-  if (D == 64) return launch_fwd<64>(q, k, v, bias, o, lse, B, H, Nq, Nk, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return fwd_entry(q, k, v, bias, o, lse, B, H, Nq, Nk, D, stream);
+}
+
+// The same with q, k, v in bf16 (contiguous, 16-byte aligned); bias, o and
+// lse stay fp32. Gives imp_flash_fwd_f32's bits on fp32 copies of q, k, v.
+extern "C" int imp_flash_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                  const __nv_bfloat16* v, const float* bias, float* o,
+                                  float* lse, int B, int H, int Nq, int Nk, int D,
+                                  void* stream) {
+  return fwd_entry(q, k, v, bias, o, lse, B, H, Nq, Nk, D, stream);
 }
 
 // The launch layout, for reports and tests: the rows a CTA owns and the keys

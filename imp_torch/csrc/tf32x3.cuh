@@ -10,10 +10,14 @@
 //    a.b = big.big + big.small + small.big on mma.sync.m16n8k8 (fp32
 //    accumulate), which keeps fp32 accuracy; the fragment loaders split
 //    as they load from row-major shared tiles padded to D + kPad floats.
-//  * cp.async staging of kTile-row tiles and vectors (zero past the end).
+//  * cp.async staging of kTile-row tiles and vectors (zero past the end);
+//    bf16 rows (K1-K3's bf16 entries) are read by plain loads and widened to
+//    fp32 as they are staged, so the shared tiles and every product are
+//    those of the fp32 entries.
 //  * the masked-key-tile vote: a bias at or below kMaskedBelow is a masked key.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -150,6 +154,27 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int r0,
     const int r = i / C, c = i % C;
     const bool in = r0 + r < n;
     cp_async16(dst + r * (D + kPad) + 4 * c, in ? src + (size_t)(r0 + r) * D + 4 * c : src, in);
+  }
+}
+
+// the same from a bf16 [n, D] matrix: four elements (8 bytes) per thread
+// and chunk, each widened exactly to fp32 (a bf16 value is the top half of
+// its fp32 value) and stored as one float4, so the staged tile holds the
+// bits that the fp32 staging of a widened copy would. Plain loads, not
+// cp.async: the widening needs the values in registers, so these loads
+// complete before the call returns and overlap only each other.
+template <int D>
+__device__ __forceinline__ void stage_rows(float* dst, const __nv_bfloat16* src, int r0, int n) {
+  constexpr int C = D / 4;  // 4-element chunks per row
+  for (int i = threadIdx.x; i < kTile * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < n) {
+      const uint2 w = *reinterpret_cast<const uint2*>(src + (size_t)(r0 + r) * D + 4 * c);
+      f = make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                      __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+    }
+    *reinterpret_cast<float4*>(dst + r * (D + kPad) + 4 * c) = f;
   }
 }
 

@@ -5,7 +5,13 @@ curriculum of ``engine/trainer.py:280-305`` and the CCA epoch of
 
 UMEML (``MODEL.NAME=umeml``): one optimizer over every parameter (coupled
 L2 on all of them), and one step is one train forward, loss = task +
-modularity, one backward, one update; no curriculum, no CCA epoch.
+modularity, one backward, one update; no curriculum, no CCA epoch.  With
+``DATASET.USE_BSM`` a step is the chunk-averaged estimator instead
+(:meth:`MBTRAIN.bsm_loss`): the bag padded to a multiple of
+``DATASET.BS_MICRO``, its tokens permuted (:meth:`MBTRAIN.bsm_permutation`)
+and cut into chunks of that many, sorted within each chunk, and the mean
+over chunks of task + ``MODEL.UMEML.ALPHA`` · modularity, one backward, one
+update.  UMEML_GAN ignores ``USE_BSM``, as in JAX.
 
 One UMEML_GAN training step (:meth:`MBTRAIN.train_step`):
 
@@ -44,15 +50,26 @@ trainer does.  :meth:`test_new` evaluates on ``<DATASET.ROOT>/test/``
 (``data/external.py``), where a slide without a molecular CSV is served with
 ``without_omic = 1`` and its omics come from the generator.
 
-Not ported here (ROADMAP.md §A item 4): ``umeml_gan_plot`` and the PNG plots
-of the importances (they need matplotlib, which the card's host lacks),
-``DATASET.USE_BSM``, ``TRAINER.PREC`` other than fp32 and
-``MODEL.INIT_WEIGHTS`` raise.  ``TPU.REMAT``/``TPU.DONATE`` need no
+``TRAINER.PREC`` bf16 (fp16, amp) runs the encode, the main phase's
+``finish``, the UMEML step and every evaluation under the precision policy
+(:func:`imp_torch.engine.precision.amp_call`: bfloat16 copies of the
+float32 parameters, batch and encode outputs, float32 outputs), as JAX's
+``_amp_apply`` does; the GAN losses and the CCA epoch run in float32, as
+JAX applies them without ``_amp_apply``.  ``MODEL.INIT_WEIGHTS`` loads a
+checkpoint's matching parameters before the optimizers are built.
+
+``umeml_gan_plot`` is UMEML_GAN with, after each evaluation, one
+``plots/sim_<patient>.png`` per slide: the bottleneck's pre-pairing path ×
+omics similarity grid (:func:`imp_torch.models.layers.sow_similarity`).
+Each training epoch renders its importance dumps to PNGs beside them.
+Both plots import matplotlib when they run and return without output where
+it is absent, as JAX does.  ``TPU.REMAT``/``TPU.DONATE`` need no
 counterpart.
 """
 
 from __future__ import annotations
 
+import os
 import os.path as osp
 from typing import Dict, List, Optional
 
@@ -60,9 +77,11 @@ import numpy as np
 import torch
 
 from . import TRAINER_REGISTRY
-from .trainer import TrainerBase, deferred, device_batch
+from .precision import amp_call, bf16_matmul_scope
+from .trainer import TrainerBase, device_batch
 from ..losses.survival import cca_loss, similarity_alignment_loss
 from ..models import build_model, survival_num_classes
+from ..models.layers import sow_similarity
 from ..optim import build_optimizer, gan_optimizer
 from ..optim.builders import Chain, Optimizer, ScaleByAdam, ScaleByLearningRate
 from ..utils.tools import count_num_param
@@ -87,22 +106,13 @@ class MBTRAIN(TrainerBase):
 
     def check_cfg(self, cfg):
         assert cfg.MODEL.NAME in ("umeml", "umeml_gan", "umeml_gan_plot")
-        if cfg.MODEL.NAME == "umeml_gan_plot":
-            raise deferred(f"MODEL.NAME={cfg.MODEL.NAME!r} under MBTRAIN (its PNG plots "
-                           "need matplotlib, which the card's host lacks)", 4)
-        if cfg.DATASET.USE_BSM:
-            raise deferred("DATASET.USE_BSM (the chunk-averaged estimator)", 4)
-        if cfg.TRAINER.PREC != "fp32":
-            raise deferred(f"TRAINER.PREC={cfg.TRAINER.PREC!r}", 4)
-        if cfg.MODEL.INIT_WEIGHTS:
-            raise deferred("MODEL.INIT_WEIGHTS", 4)
 
     # ------------------------------------------------------------------ #
     # model and optimizers                                                 #
     # ------------------------------------------------------------------ #
     def build_model(self):
         cfg = self.cfg
-        self.is_gan = cfg.MODEL.NAME == "umeml_gan"
+        self.is_gan = cfg.MODEL.NAME in ("umeml_gan", "umeml_gan_plot")
         genes = ({"gene_group_indexes": self.dm.gene_group_indexes or ()} if self.is_gan
                  else {"omic_dim": self.dm.omic_dim})
         self.model = build_model(
@@ -111,6 +121,7 @@ class MBTRAIN(TrainerBase):
             device=self.device, generator=torch.Generator().manual_seed(max(cfg.SEED, 0)),
             **genes,
         )
+        self.init_weights(self.model)
         self.omic_means = self.dm.compute_omic_means()
         self._train_importance = None  # a list of the steps' importances during run_epoch
         print(f"# params: {count_num_param(self.model):,}")
@@ -171,13 +182,50 @@ class MBTRAIN(TrainerBase):
     def train_step(self, db: Dict[str, torch.Tensor], train_gan: bool = False,
                    replace_ratio: float = 0.0) -> Dict[str, torch.Tensor]:
         """One MBTRAIN step on a device batch; returns device scalars."""
+        with bf16_matmul_scope(self.cdtype):
+            return self._train_step(db, train_gan, replace_ratio)
+
+    def bsm_permutation(self, npad: int) -> torch.Tensor:
+        """The token permutation of one ``USE_BSM`` step, drawn from the
+        trainer's generator (JAX draws it with ``jax.random``, so the bits
+        differ; a test fixes it by replacing this method)."""
+        return torch.randperm(npad, generator=self.generator, device=self.device)
+
+    def bsm_loss(self, db: Dict[str, torch.Tensor], perm: torch.Tensor) -> torch.Tensor:
+        """The chunk-averaged loss of a UMEML batch (JAX ``train_step_bsm``,
+        reference ``split_chunk`` + BSM branch): the bag padded with masked
+        tokens to a multiple of ``BS_MICRO``, the chunks the rows of
+        ``perm`` cut into ``BS_MICRO`` columns and sorted, and the mean over
+        chunks of task + ``ALPHA`` · modularity."""
+        cfg = self.cfg
+        micro, alpha = int(cfg.DATASET.BS_MICRO), float(cfg.MODEL.UMEML.ALPHA)
+        img, mask = db["img"], db["img_mask"]
+        b, n = mask.shape
+        n_chunks = -(-n // micro)
+        pad = n_chunks * micro - n
+        img_p = torch.cat([img, img.new_zeros(b, pad, img.shape[2])], dim=1)
+        mask_p = torch.cat([mask, mask.new_zeros(b, pad)], dim=1)
+        total = 0.0
+        for take in perm.reshape(n_chunks, micro).sort(dim=1).values:
+            sub = dict(db, img=img_p[:, take], img_mask=mask_p[:, take])
+            out = amp_call(self.model, "forward", self.cdtype, sub, train=True,
+                           generator=self.generator)
+            total = total + self.task_loss(out["logits"], db) + alpha * out["modular_loss"]
+        return total / n_chunks
+
+    def _train_step(self, db, train_gan, replace_ratio):
         model, g = self.model, self.generator
         if not self.is_gan:
-            out = model(db, train=True, generator=g)
-            loss = self.task_loss(out["logits"], db) + out["modular_loss"]
+            if self.cfg.DATASET.USE_BSM:
+                micro = int(self.cfg.DATASET.BS_MICRO)
+                npad = -(-db["img"].shape[1] // micro) * micro  # padded to whole chunks
+                loss = self.bsm_loss(db, self.bsm_permutation(npad))
+            else:
+                out = amp_call(model, "forward", self.cdtype, db, train=True, generator=g)
+                loss = self.task_loss(out["logits"], db) + out["modular_loss"]
             self._step(self.main_opt, loss)
             return {"loss": loss.detach()}
-        enc = model.encode(db, train=True, generator=g)
+        enc = amp_call(model, "encode", self.cdtype, db, train=True, generator=g)
         metrics = {}
         if train_gan:
             hp, ho = enc["h_path"].detach(), enc["h_omic"].detach()
@@ -189,7 +237,8 @@ class MBTRAIN(TrainerBase):
                 loss = loss_fn(hp, ho)
                 self._step(opt, loss)
                 metrics[name] = loss.detach()
-        out = model.finish(enc, db, train=True, replace_ratio=replace_ratio, generator=g)
+        out = amp_call(model, "finish", self.cdtype, enc, db, train=True,
+                       replace_ratio=replace_ratio, generator=g)
         loss = self.task_loss(out["logits"], db) + out["modular_loss"] + out["loss_kd"]
         self._step(self.main_opt, loss)
         metrics["loss"] = loss.detach()
@@ -232,6 +281,7 @@ class MBTRAIN(TrainerBase):
         for imp_path, imp_omic in self._train_importance:
             self._dump_importance(imp_path.cpu().numpy(), imp_omic.cpu().numpy())
         self._train_importance = None
+        self._plot_importance()
 
     def _log_extras(self, train_gan: bool, replace_ratio: float):
         return [f"gan={train_gan}", f"rr={replace_ratio:.3f}"]
@@ -320,7 +370,10 @@ class MBTRAIN(TrainerBase):
         self._set_ablation(loader, without_ratio, insample_ratio)
         self._open_imp_files(split)
         print(f"Evaluate on the *{split}* set")
-        return self._evaluate(split, loader)
+        result = self._evaluate(split, loader)
+        if self.cfg.MODEL.NAME.endswith("_plot"):
+            self._plot_similarity(loader)
+        return result
 
     def test_new(self, cfg=None, split: str = "test",
                  umeml_gan_test_without_omic_ratio: float = 0,
@@ -385,6 +438,74 @@ class MBTRAIN(TrainerBase):
             with open(self._imp_files[mod], "a") as f:
                 for row in arr:
                     f.write(" ".join(str(float(x)) for x in row) + "\n")
+
+    def similarity_grids(self, batch: Dict) -> torch.Tensor:
+        """The pre-pairing path × omics similarity grid of each slide of a
+        host batch ([B, P + 1, P + 1]): the bottleneck's first pass of the
+        float32 eval forward, as JAX's sown ``similarity`` (no ablation)."""
+        b = batch["img"].shape[0]
+        with torch.no_grad(), sow_similarity(self.model.bottleattn) as sown:
+            self.model(self._device_batch(batch), train=False)
+        return sown[0][:b]
+
+    def _plot_similarity(self, loader) -> None:
+        """One ``plots/sim_<patient>.png`` block grid per slide of
+        ``loader`` (the ``umeml_gan_plot`` variant, reference
+        ``umeml_gan_plot.py:124-168``); nothing without matplotlib."""
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+            from matplotlib import patches as mpatches
+        except Exception:
+            return
+        plot_dir = osp.join(self.output_dir, "plots")
+        os.makedirs(plot_dir, exist_ok=True)
+        for batch in loader:
+            sim = self.similarity_grids(batch).float().cpu().numpy()
+            for i, pid in enumerate(batch["patient_id"]):
+                grid = sim[i]
+                grid = (grid - grid.min()) / (grid.max() - grid.min() + 1e-6)
+                grid = grid * 0.5 + 0.5  # the reference's rescale into the upper Blues half
+                gap, block = 5, 20
+                fig_size = (block + gap) * grid.shape[1] / 100
+                fig, ax = plt.subplots(figsize=(fig_size, fig_size), dpi=100)
+                for r in range(grid.shape[0]):
+                    for c in range(grid.shape[1]):
+                        ax.add_patch(mpatches.Rectangle(
+                            (c * (block + gap), r * (block + gap)), block, block,
+                            linewidth=0, facecolor=plt.cm.Blues(grid[r, c])))
+                ax.set_xlim(0, grid.shape[1] * (block + gap))
+                ax.set_ylim(0, grid.shape[0] * (block + gap))
+                ax.invert_yaxis()
+                ax.axis("off")
+                fig.patch.set_alpha(0.0)
+                fig.savefig(osp.join(plot_dir, f"sim_{pid}.png"), bbox_inches="tight",
+                            pad_inches=0.1, transparent=True)
+                plt.close(fig)
+
+    def _plot_importance(self) -> None:
+        """Render the current importance dumps to PNGs beside them
+        (reference ``trainer.py:27-44``); nothing without matplotlib."""
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except Exception:
+            return
+        for fp in getattr(self, "_imp_files", {}).values():
+            if not osp.isfile(fp) or osp.getsize(fp) == 0:  # UMEML dumps no importances
+                continue
+            data = np.loadtxt(fp)
+            data = np.atleast_2d(data)
+            fig = plt.figure(figsize=(data.shape[1] / 10, max(data.shape[0], 1) / 10))
+            ax = fig.add_axes([0, 0, 1, 1])
+            ax.imshow(data, cmap="Blues", aspect="auto", interpolation="nearest")
+            ax.axis("off")
+            fig.savefig(fp.replace(".txt", ".png"), dpi=100)
+            plt.close(fig)
 
     # ------------------------------------------------------------------ #
     # state                                                                #

@@ -16,6 +16,14 @@ One process drives one device (``cuda`` unless the caller passes
 ``device="cpu"``); the JAX package's mesh, sequence parallelism and device
 bag cache have no counterpart here yet.  Randomness comes from one
 ``torch.Generator`` on the device, seeded from ``cfg.SEED``.
+
+``TRAINER.PREC`` bf16 (or fp16/amp) runs every train and eval forward of a
+trainer through :func:`imp_torch.engine.precision.amp_call` (bfloat16
+copies of the float32 parameters and batch, float32 outputs) inside
+:func:`~imp_torch.engine.precision.bf16_matmul_scope`;
+``MODEL.INIT_WEIGHTS`` loads a checkpoint's matching parameters into the
+fresh model before any parameter is frozen
+(:func:`imp_torch.utils.checkpoint.load_pretrained_params`).
 """
 
 from __future__ import annotations
@@ -37,9 +45,11 @@ from ..optim import build_optimizer, lr_at_epoch
 from ..utils.checkpoint import (
     best_checkpoint_path,
     load_checkpoint,
+    load_pretrained_params,
     resume_from_checkpoint,
     save_checkpoint,
 )
+from .precision import amp_call, bf16_matmul_scope, compute_dtype_of
 from ..utils.logger import MetricWriter, mkdir_if_missing
 from ..utils.meters import AverageMeter, MetricMeter
 from ..utils.tools import count_num_param
@@ -137,6 +147,7 @@ class TrainerBase:
             self.evaluator = build_evaluator(cfg, lab2cname=self.lab2cname)
 
         self.generator = torch.Generator(device=self.device).manual_seed(max(cfg.SEED, 0))
+        self.cdtype = compute_dtype_of(cfg)  # bfloat16 under TRAINER.PREC bf16/fp16/amp
         self.best_result = -np.inf
         self.writer: Optional[MetricWriter] = None
         self.time_start = None
@@ -228,6 +239,13 @@ class TrainerBase:
     def _eval_batch(self, batch: Dict, split: str, batch_index: int) -> Dict[str, torch.Tensor]:
         return self._device_batch(batch)
 
+    def init_weights(self, model: nn.Module) -> None:
+        """``MODEL.INIT_WEIGHTS``: the named checkpoint's parameters whose
+        name and shape match, into ``model`` (the JAX trainers load them
+        right after init, before freezing any)."""
+        if self.cfg.MODEL.INIT_WEIGHTS:
+            load_pretrained_params(self.cfg.MODEL.INIT_WEIGHTS, model)
+
     def _eval_output(self, out: Dict[str, torch.Tensor], batch: Dict) -> None:
         """What a subclass keeps of one eval batch's model outputs besides
         the logits (called in batch order, after the loop)."""
@@ -244,9 +262,10 @@ class TrainerBase:
         read back once, after the loop."""
         self.evaluator.reset()
         pending = []
-        with torch.no_grad():
+        with torch.no_grad(), bf16_matmul_scope(self.cdtype):
             for batch_index, batch in enumerate(loader):
-                out = self.model(self._eval_batch(batch, split, batch_index), train=False)
+                out = amp_call(self.model, "forward", self.cdtype,
+                               self._eval_batch(batch, split, batch_index), train=False)
                 pending.append((out if isinstance(out, dict) else {"logits": out}, batch))
         for out, batch in pending:
             self._eval_output(out, batch)
@@ -365,10 +384,6 @@ class StandardTrainer(TrainerBase):
         return 0.0
 
     def check_cfg(self, cfg):
-        if cfg.MODEL.INIT_WEIGHTS:
-            raise deferred("MODEL.INIT_WEIGHTS", 4)
-        if cfg.TRAINER.PREC != "fp32":
-            raise deferred(f"TRAINER.PREC={cfg.TRAINER.PREC!r}", 4)
         if "seq" in cfg.TPU.MESH_AXES:
             raise deferred("sequence parallelism (TPU.MESH_AXES with 'seq')", 8)
 
@@ -384,6 +399,7 @@ class StandardTrainer(TrainerBase):
 
     def build_model(self):
         self.model = self.build_network()
+        self.init_weights(self.model)
         print(f"# params: {count_num_param(self.model):,}")
         params = list(self.model.parameters())
         labels = self.param_labels()
@@ -400,10 +416,13 @@ class StandardTrainer(TrainerBase):
                                          grad_accum=accum)
 
     def train_step(self, db: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        out = self.model(db, train=True, generator=self.generator)
-        logits = out["logits"] if isinstance(out, dict) else out
-        loss = self.task_loss(logits, db) + self.extra_loss(out, db)
-        self.optimizer.step(torch.autograd.grad(loss, self.optimizer.params, allow_unused=True))
+        with bf16_matmul_scope(self.cdtype):
+            out = amp_call(self.model, "forward", self.cdtype, db, train=True,
+                           generator=self.generator)
+            logits = out["logits"] if isinstance(out, dict) else out
+            loss = self.task_loss(logits, db) + self.extra_loss(out, db)
+            self.optimizer.step(torch.autograd.grad(loss, self.optimizer.params,
+                                                    allow_unused=True))
         return {"loss": loss.detach()}
 
     def state_dict(self) -> Dict:

@@ -55,6 +55,20 @@ KERNELS = {
         "flash_bwd.cu",
         {"imp_flash_bwd_dkv_f32": [_P] * 9 + [_I] * 5 + [_P]},
     ),
+    # K1-K3's bf16-operand entries (TRAINER.PREC bf16): the same kernels and
+    # libraries, each entry counted apart
+    "flash_fwd_bf16": (
+        "flash_fwd.cu",
+        {"imp_flash_fwd_bf16": [_P] * 6 + [_I] * 5 + [_P]},
+    ),
+    "flash_bwd_dq_bf16": (
+        "flash_bwd.cu",
+        {"imp_flash_bwd_dq_bf16": [_P] * 8 + [_I] * 5 + [_P]},
+    ),
+    "flash_bwd_dkv_bf16": (
+        "flash_bwd.cu",
+        {"imp_flash_bwd_dkv_bf16": [_P] * 9 + [_I] * 5 + [_P]},
+    ),
     "modularity_deg": (
         "modularity.cu",
         {"imp_modularity_deg_f32": [_P] * 4 + [_I] * 3 + [_P],

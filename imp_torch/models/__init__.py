@@ -1,6 +1,6 @@
 """Model registry — the PyTorch counterpart of ``imp_tpu/models/__init__.py``.
-Same config names; the port registers ``umeml``, ``umeml_gan``,
-``transmil``, ``abmil``, ``snn``, ``snnm`` and ``clipomic`` here, and the
+Same config names; the port registers ``umeml``, ``umeml_gan`` (and its
+alias ``umeml_gan_plot``), ``transmil``, ``abmil``, ``snn``, ``snnm`` and ``clipomic`` here, and the
 fusion nets ``mcat``, ``cmta``, ``porpoise`` and ``hfb`` with their trainers
 (``engine/fusion_trainers.py``).  Every builder turns TF32 off, initialises the
 model from a ``torch.Generator`` (default: seed 0) without touching the
@@ -99,10 +99,16 @@ def build_umeml_gan(
     device="cuda",
     generator: Optional[torch.Generator] = None,
     pinv_mode: str = "chain",
+    head_fused: bool = True,
+    stacked_pairs: bool = False,
+    bag_dtype: Optional[torch.dtype] = None,
 ) -> UMEML_GAN:
     """UMEML_GAN from ``cfg`` and the gene groups; with
     ``MODEL.UMEML.PROTO_INIT=plip`` its prototypes come from the cached PLIP
-    prototypes (:func:`imp_torch.models.prototypes.plip_prototype_init`)."""
+    prototypes (:func:`imp_torch.models.prototypes.plip_prototype_init`).
+    ``head_fused``, ``stacked_pairs`` and ``bag_dtype``, the JAX module
+    globals ``HEAD_FUSED``, ``STACKED_PAIRS`` and ``BAG_DTYPE``, have no cfg
+    key either (see :class:`UMEML_GAN`)."""
     proto_init = None
     if cfg.MODEL.UMEML.PROTO_INIT == "plip":
         proto_init = plip_prototype_init(cfg, cfg.MODEL.UMEML.PROTOTYPES, cfg.MODEL.HIDDEN_DIM)
@@ -121,10 +127,22 @@ def build_umeml_gan(
             kd_t=float(cfg.MODEL.UMEML.KD_T),
             attention=resolve_attention(cfg.TPU.ATTENTION),
             pinv_mode=pinv_mode,
+            head_fused=head_fused,
+            stacked_pairs=stacked_pairs,
+            bag_dtype=bag_dtype,
             proto_init=proto_init,
         ),
         device, generator,
     )
+
+
+@MODEL_REGISTRY.register_as("umeml_gan_plot")
+def build_umeml_gan_plot(cfg, num_classes: int, gene_group_indexes: Sequence[Sequence[int]],
+                         **kwargs) -> UMEML_GAN:
+    """The reference's ``umeml_gan_plot.py``: UMEML_GAN as it is; MBTRAIN
+    (which tells it by the ``_plot`` suffix) draws its similarity grids
+    after each evaluation."""
+    return build_umeml_gan(cfg, num_classes, gene_group_indexes, **kwargs)
 
 
 @MODEL_REGISTRY.register_as("transmil")

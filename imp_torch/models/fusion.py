@@ -309,6 +309,12 @@ class BatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        # statistics in float32 (float64 for a float64 input) and the
+        # output in the dtype of x and the affine parameters (bfloat16
+        # under TRAINER.PREC bf16), as flax computes them; the running
+        # buffers stay float32
+        out_dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
             mean = x.mean(dim=0)
             var = torch.clamp_min((x * x).mean(dim=0) - mean * mean, 0.0)
@@ -317,7 +323,8 @@ class BatchNorm(nn.Module):
                 self.running_var.mul_(self.momentum).add_(var.detach(), alpha=1 - self.momentum)
         else:
             mean, var = self.running_mean, self.running_var
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(out_dtype)
 
 
 def _mfb(x1: torch.Tensor, x2: torch.Tensor, output_dim: int, rank: int, rate: float,

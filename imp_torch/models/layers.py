@@ -5,8 +5,9 @@ per-slide Python loops.  Parameter names follow the JAX package's tree
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -114,6 +115,9 @@ class BottleneckAttentionBlock(nn.Module):
             self.linear_p = nn.Linear(dim, dim)
             self.linear_o = nn.Linear(dim, dim)
         self.encoders = nn.ModuleList([Block(dim, impl, pinv_mode) for _ in range(2)])
+        #: a list while :func:`sow_similarity` records: each paired call
+        #: appends its pre-pairing similarity grid (JAX's sown ``similarity``)
+        self.sown: Optional[List[torch.Tensor]] = None
 
     @torch.no_grad()
     def reset_own_parameters(self, generator: torch.Generator) -> None:
@@ -131,6 +135,8 @@ class BottleneckAttentionBlock(nn.Module):
             x = torch.cat([x_path, bottle_b, x_omic], dim=1)
         else:
             sim = cosine_similarity_matrix(x_path, x_omic)
+            if self.sown is not None:  # the plot variant's grid
+                self.sown.append(sim.detach())
             rows, cols = greedy_topk_pairs(sim, self.topk)  # selection order
             ks = self.linear_p(gather_tokens(x_path, rows)) + self.linear_o(
                 gather_tokens(x_omic, cols)
@@ -142,6 +148,47 @@ class BottleneckAttentionBlock(nn.Module):
             x = enc(x, generator=generator)
         t = path_len + self.n_reg
         return x[:, :1], x[:, 1:path_len], x[:, t : t + 1], x[:, t + 1 :]
+
+
+class Stacked(nn.Module):
+    """``n`` twins of one module as ONE module over a leading axis (JAX's
+    ``nn.vmap`` with ``variable_axes={"params": 0}``): every parameter of
+    ``self.layer`` is stacked to ``[n, *shape]`` (independent init draws
+    per twin), and :meth:`forward` maps twin ``i`` of the ``[n, ...]``
+    input through ``self.layer`` at parameter slice ``i``.  The twins run
+    one after the other, so each keeps its own reductions (a Nyström
+    twin's pseudo-inverse normalises by its own global max, as under
+    ``vmap``) and draws its own dropout masks."""
+
+    def __init__(self, make, n: int = 2):
+        super().__init__()
+        self.n = n
+        self.layer = make()
+        for mod in self.layer.modules():
+            for name, p in list(mod._parameters.items()):
+                if p is not None:
+                    mod._parameters[name] = nn.Parameter(
+                        p.detach().unsqueeze(0).repeat(n, *([1] * p.dim())))
+
+    def forward(self, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+        stacked = dict(self.layer.named_parameters())
+        return torch.stack([
+            torch.func.functional_call(self.layer, {k: p[i] for k, p in stacked.items()},
+                                       (x[i], *args), kwargs)
+            for i in range(self.n)
+        ])
+
+
+@contextlib.contextmanager
+def sow_similarity(block: BottleneckAttentionBlock) -> Iterator[List[torch.Tensor]]:
+    """Record the pre-pairing similarity grid ([rows, P, O]) of each paired
+    call of ``block`` in the yielded list, in call order (the plot variant,
+    reference ``umeml_gan_plot.py:124-168``)."""
+    block.sown = []
+    try:
+        yield block.sown
+    finally:
+        block.sown = None
 
 
 class Generator(nn.Module):

@@ -15,12 +15,21 @@ modularity loss through :func:`imp_torch.ops.modularity.compute_modularity_pair`
 tokens, the Survival configs) or ``"bilinear"`` (:class:`BilinearFusion`
 with dim 256 / 8 per side, the other tasks' configs), as in JAX.
 
-The JAX package's module globals are constructor arguments here, validated
-where they are used.  Only their defaults are ported: ``head_fused=True``
-(the head's two bottleneck passes as one 2B-row call), ``stacked_pairs=False``
-(twin decoder modules) and ``bag_dtype=None`` (all-fp32 bag activations);
-the others raise ``NotImplementedError`` naming their ROADMAP item.
-``attention`` replaces the process-global ``TPU.ATTENTION`` default, and
+The JAX package's module globals are constructor arguments here:
+``head_fused`` (JAX ``HEAD_FUSED``; default True: the head's plain and
+importance-scaled bottleneck passes as one call over 2B rows; False: two
+sequential passes, as the reference runs them), ``stacked_pairs``
+(``STACKED_PAIRS``; default False: twin modules ``path_decoder``/
+``omic_decoder``, ``layer_norm_p``/``layer_norm_o``, ``explainer_path``/
+``explainer_omic``; True: ``pair_decoder``, ``pair_norm`` and
+``pair_explainer``, each one :class:`~imp_torch.models.layers.Stacked`
+module over the ``[2, B, T, D]`` stack of the two token sequences) and
+``bag_dtype`` (``BAG_DTYPE``; default None: float32; ``torch.bfloat16``:
+the bag activations after ``path_net`` are cast to it, and the prototype
+cross-attention's K and V keep it, while parameters, losses, the
+pseudo-inverse and the modularity stay float32; :meth:`encode` then runs
+under :class:`~imp_torch.engine.precision.JaxPromotion`, so mixed operands
+promote as in JAX).  ``attention`` replaces the process-global ``TPU.ATTENTION`` default, and
 ``pinv_mode`` the JAX module global ``PINV_MODE`` (``"chain"``, the default,
 or ``"fused"``: the Nyström pseudo-inverse through the kernels K6/K7, see
 :func:`imp_torch.ops.attention.moore_penrose_pinv`).  ``proto_init``, JAX's
@@ -36,6 +45,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..engine.precision import JaxPromotion
 from ..losses.survival import kd_loss
 from ..ops.attention import (
     ATTENTION_IMPLS,
@@ -53,13 +63,11 @@ from .layers import (
     Generator,
     GroupedLinear,
     PathProtoGenerator,
+    Stacked,
     proto_init_,
     transform_importance,
     transform_importance_to_half_one_point_five,
 )
-
-_DEFERRED = "not ported yet: see ROADMAP.md §A item 4 (the rest of the UMEML family)"
-
 
 def _bce_with_logits_vs_ones(z: torch.Tensor) -> torch.Tensor:
     """BCEWithLogits(z, 1) = softplus(-z).  The reference applies it to the
@@ -105,12 +113,7 @@ class UMEML_GAN(nn.Module):
             raise ValueError(f"attention {attention!r} not in {ATTENTION_IMPLS}")
         if fusion not in ("concat", "bilinear"):
             raise ValueError(f"Unknown fusion: {fusion}")
-        if not head_fused:
-            raise NotImplementedError(f"head_fused=False (two sequential head passes) {_DEFERRED}")
-        if stacked_pairs:
-            raise NotImplementedError(f"stacked_pairs=True (param-stacked twins) {_DEFERRED}")
-        if bag_dtype is not None:
-            raise NotImplementedError(f"bag_dtype={bag_dtype} (bag-only mixed precision) {_DEFERRED}")
+        self.head_fused, self.stacked_pairs, self.bag_dtype = head_fused, stacked_pairs, bag_dtype
         self.num_classes, self.hidden = num_classes, hidden
         self.n_proto, self.kd_t, self.attention = n_proto, kd_t, attention
         self.dropout_rate, self.lambda_cyc = dropout_rate, lambda_cyc
@@ -127,10 +130,14 @@ class UMEML_GAN(nn.Module):
         self.omic_net = GroupedLinear([len(g) for g in self.gene_group_indexes], hidden)
         self.proto_g_blocks = nn.ModuleList([PathProtoGenerator(hidden) for _ in range(2)])
         self.omic_encoder = nn.ModuleList([Block(hidden, attention, pinv_mode) for _ in range(2)])
-        self.layer_norm_p = nn.LayerNorm(hidden, eps=1e-5)
-        self.layer_norm_o = nn.LayerNorm(hidden, eps=1e-5)
-        self.path_decoder = TransLayer(hidden, attention, pinv_mode=pinv_mode)
-        self.omic_decoder = TransLayer(hidden, attention, pinv_mode=pinv_mode)
+        if stacked_pairs:
+            self.pair_decoder = Stacked(lambda: TransLayer(hidden, attention, pinv_mode=pinv_mode))
+            self.pair_norm = Stacked(lambda: nn.LayerNorm(hidden, eps=1e-5))
+        else:
+            self.layer_norm_p = nn.LayerNorm(hidden, eps=1e-5)
+            self.layer_norm_o = nn.LayerNorm(hidden, eps=1e-5)
+            self.path_decoder = TransLayer(hidden, attention, pinv_mode=pinv_mode)
+            self.omic_decoder = TransLayer(hidden, attention, pinv_mode=pinv_mode)
         self.bottleattn = BottleneckAttentionBlock(
             dim=hidden, n_reg=n_reg, use_pairing=True, topk=topk, impl=attention,
             pinv_mode=pinv_mode,
@@ -146,8 +153,11 @@ class UMEML_GAN(nn.Module):
             self.mm_fc1 = nn.Linear(2 * hidden, hidden)
             self.mm_fc2 = nn.Linear(hidden, hidden)
         self.classifier = nn.Linear(hidden, num_classes)
-        self.explainer_path = nn.Linear(hidden, num_classes, bias=False)
-        self.explainer_omic = nn.Linear(hidden, num_classes, bias=False)
+        if stacked_pairs:
+            self.pair_explainer = Stacked(lambda: nn.Linear(hidden, num_classes, bias=False))
+        else:
+            self.explainer_path = nn.Linear(hidden, num_classes, bias=False)
+            self.explainer_omic = nn.Linear(hidden, num_classes, bias=False)
 
         # all gene groups gathered into one zero-padded [K, Gmax] index grid
         gmax = max(len(g) for g in self.gene_group_indexes)
@@ -180,6 +190,14 @@ class UMEML_GAN(nn.Module):
         train: bool = False,
         generator: Optional[torch.Generator] = None,
     ) -> Dict:
+        if self.bag_dtype is None:
+            return self._encode(batch, train, generator)
+        # the bag's dtype meets float32 parameters and prototypes: mixed
+        # operands promote as they do in JAX
+        with JaxPromotion():
+            return self._encode(batch, train, generator)
+
+    def _encode(self, batch, train, generator) -> Dict:
         g = train_generator(train, generator)
         x_path = batch["img"]
         mask = batch.get("img_mask")
@@ -191,7 +209,10 @@ class UMEML_GAN(nn.Module):
         if insample is not None and "omic_means" in batch:
             x_omic = torch.where(insample.bool(), batch["omic_means"][None, :], x_omic)
 
-        h_path_bag = dropout(F.relu(self.path_net(x_path)), self.dropout_rate, g)
+        h = self.path_net(x_path)
+        if self.bag_dtype is not None:  # every bag-sized tensor downstream in it
+            h = h.to(self.bag_dtype)
+        h_path_bag = dropout(F.relu(h), self.dropout_rate, g)
         if mask is not None:
             h_path_bag = h_path_bag * mask[..., None]
 
@@ -206,8 +227,12 @@ class UMEML_GAN(nn.Module):
         for blk in self.omic_encoder:
             h_omic = blk(h_omic, generator=g)
         h_path = torch.cat([self.p_encoder_token.expand(b, -1, -1), p_proto], dim=1)
-        h_path = self.layer_norm_p(self.path_decoder(h_path, generator=g))
-        h_omic = self.layer_norm_o(self.omic_decoder(h_omic, generator=g))
+        if self.stacked_pairs:  # both [B, n_proto + 1, D]: one module over the stack
+            h_path, h_omic = self.pair_norm(
+                self.pair_decoder(torch.stack([h_path, h_omic]), generator=g))
+        else:
+            h_path = self.layer_norm_p(self.path_decoder(h_path, generator=g))
+            h_omic = self.layer_norm_o(self.omic_decoder(h_omic, generator=g))
         return {
             "h_path": h_path,
             "h_omic": h_omic,
@@ -271,9 +296,13 @@ class UMEML_GAN(nn.Module):
         b, n_tokens, _ = h_path.shape
 
         # per-prototype explainer + self-distillation (ref :554-598), first,
-        # so both bottleneck passes run as ONE call over 2B rows
-        logits_path_proto = self.explainer_path(h_path)  # [B, P, C]
-        logits_omic_proto = self.explainer_omic(h_omic)
+        # so both bottleneck passes can run as ONE call over 2B rows
+        if self.stacked_pairs:
+            logits_path_proto, logits_omic_proto = self.pair_explainer(
+                torch.stack([h_path, h_omic]))  # [B, P, C] each
+        else:
+            logits_path_proto = self.explainer_path(h_path)  # [B, P, C]
+            logits_omic_proto = self.explainer_omic(h_omic)
         logits_explained = (logits_path_proto.mean(dim=1) + logits_omic_proto.mean(dim=1)) / 2.0
         pred = logits_explained.argmax(dim=1)[:, None, None]  # [B, 1, 1]
         imp_path = logits_path_proto.gather(2, pred.expand(b, n_tokens, 1))[..., 0]
@@ -281,13 +310,19 @@ class UMEML_GAN(nn.Module):
 
         w_path = transform_importance_to_half_one_point_five(imp_path.detach())[..., None]
         w_omic = transform_importance_to_half_one_point_five(imp_omic.detach())[..., None]
-        # the plain pass (ref :514) and the importance-scaled pass (ref
-        # :649-678) share no state: one batched call over 2B rows
-        hp2 = torch.cat([h_path, h_path * w_path], dim=0)
-        ho2 = torch.cat([h_omic, h_omic * w_omic], dim=0)
-        t_path, _, t_omic, _ = self.bottleattn(hp2, ho2, generator=g)
-        logits_both = self.classifier(self._fuse(t_path, t_omic, g))
-        logits1, logits = logits_both[:b], logits_both[b:]
+        if self.head_fused:
+            # the plain pass (ref :514) and the importance-scaled pass (ref
+            # :649-678) share no state: one batched call over 2B rows
+            hp2 = torch.cat([h_path, h_path * w_path], dim=0)
+            ho2 = torch.cat([h_omic, h_omic * w_omic], dim=0)
+            t_path, _, t_omic, _ = self.bottleattn(hp2, ho2, generator=g)
+            logits_both = self.classifier(self._fuse(t_path, t_omic, g))
+            logits1, logits = logits_both[:b], logits_both[b:]
+        else:  # two sequential passes, as the reference runs them
+            t_path, _, t_omic, _ = self.bottleattn(h_path, h_omic, generator=g)
+            logits1 = self.classifier(self._fuse(t_path, t_omic, g))
+            t_path, _, t_omic, _ = self.bottleattn(h_path * w_path, h_omic * w_omic, generator=g)
+            logits = self.classifier(self._fuse(t_path, t_omic, g))
         return {
             "logits": logits,
             "logits_first_pass": logits1,

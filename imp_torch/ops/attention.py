@@ -29,9 +29,14 @@ of a model's parameters from a generator, from the JAX package's
 distributions.  The attention output of a TransLayer
 drops at rate 0.1, as the JAX package's ``TransLayer.dropout`` does.
 
-Numerics: everything is float32.  The Newton-Schulz pseudo-inverse needs
-true fp32 products, and the residual conv must not run in TF32; the model
-builders turn TF32 off (:mod:`imp_torch.models`).
+Numerics: float32, or bfloat16 activations under ``TRAINER.PREC`` bf16
+(:mod:`imp_torch.engine.precision`), with the JAX package's float32
+islands: the pseudo-inverse and the residual depthwise conv compute in
+float32 and return the input's dtype, and the cross-attention's K and V
+keep the key and value dtype (UMEML_GAN's bag-only bf16).  The
+Newton-Schulz pseudo-inverse needs true fp32 products, and the residual
+conv must not run in TF32; the model builders turn TF32 off
+(:mod:`imp_torch.models`).
 """
 
 from __future__ import annotations
@@ -181,10 +186,13 @@ class _CPUTokenConv(torch.autograd.Function):
 def residual_depthwise_conv(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Per-head depthwise conv over the token axis with SAME padding (the
     Nyström value residual, reference ``Conv2d(heads, heads, (k,1),
-    groups=heads)``).  v: [B, H, N, dh]; w: [H, 1, k, 1]."""
-    if v.device.type == "cpu":
-        return _CPUTokenConv.apply(v, w)
-    return _token_conv(v, w)
+    groups=heads)``).  v: [B, H, N, dh]; w: [H, 1, k, 1].  Computed in
+    float32 (float64 for a float64 input) and returned in v's dtype, as JAX
+    computes it."""
+    wide = torch.promote_types(torch.promote_types(v.dtype, w.dtype), torch.float32)
+    vw, ww = v.to(wide), w.to(wide)
+    out = _CPUTokenConv.apply(vw, ww) if v.device.type == "cpu" else _token_conv(vw, ww)
+    return out.to(v.dtype)
 
 
 def dense_attention(
@@ -261,8 +269,11 @@ class MultiheadAttention(nn.Module):
         e, h = self.embed_dim, self.num_heads
         w, bias = self.in_proj_weight, self.in_proj_bias
         q = query @ w[:, :e] + bias[:e]
-        k = key @ w[:, e : 2 * e] + bias[e : 2 * e]
-        v = value @ w[:, 2 * e :] + bias[2 * e :]
+        # K and V keep the key and value dtype (a no-op in fp32): under the
+        # bag-only bf16 the bag-sized K/V stay half-width (JAX :335-346);
+        # mixed operands promote under engine.precision.JaxPromotion
+        k = (key @ w[:, e : 2 * e] + bias[e : 2 * e]).to(key.dtype)
+        v = (value @ w[:, 2 * e :] + bias[2 * e :]).to(value.dtype)
         q, k, v = _split_heads(q, h), _split_heads(k, h), _split_heads(v, h)
         out, weights, raw = dense_attention(q, k, v, key_valid, scale=(e // h) ** -0.5)
         if self.dropout > 0.0 and generator is not None:
@@ -303,7 +314,7 @@ class _QKVAttention(nn.Module):
     @torch.no_grad()
     def reset_own_parameters(self, generator: Optional[torch.Generator]) -> None:
         if self.res_conv is not None:
-            bound = 1.0 / math.sqrt(self.res_conv.shape[2])  # fan_in = k
+            bound = 1.0 / math.sqrt(self.res_conv.shape[-2])  # fan_in = k
             self.res_conv.uniform_(-bound, bound, generator=generator)
 
     def _qkv(self, x: torch.Tensor):

@@ -249,10 +249,14 @@ class PPEG(nn.Module):
         b, _, c = x.shape
         cls_token, feat = x[:, :1], x[:, 1:]
         grid = feat.transpose(1, 2).reshape(b, c, H, W)
+        # each conv in float32 (float64 for a float64 input), returned in
+        # x's dtype, as JAX computes them under bf16
+        wide = torch.promote_types(x.dtype, torch.float32)
         out = grid
         for name, k in self.KERNELS:
-            out = out + F.conv2d(grid, getattr(self, f"{name}_kernel"),
-                                 getattr(self, f"{name}_bias"), padding=k // 2, groups=c)
+            out = out + F.conv2d(grid.to(wide), getattr(self, f"{name}_kernel").to(wide),
+                                 getattr(self, f"{name}_bias").to(wide), padding=k // 2,
+                                 groups=c).to(x.dtype)
         return torch.cat([cls_token, out.reshape(b, c, H * W).transpose(1, 2)], dim=1)
 
 

@@ -27,6 +27,18 @@
   torch op and runs K2 and K3.  Under ``torch.no_grad()`` K1 is the only
   launch.
 
+Operands (``TRAINER.PREC``).  q, k and v are float32, or bfloat16 under the
+bf16 precision policy; bias, lse, delta and dO are float32, and O, lse, dq,
+dk and dv come out float32 in both cases: the TPU kernels' contract under
+``mxu_precision="fp32"``.  A bf16 q, k, v goes to the kernels' bf16 entries
+(``imp_flash_*_bf16``, counted apart as ``flash_fwd_bf16``,
+``flash_bwd_dq_bf16`` and ``flash_bwd_dkv_bf16``), which widen the
+operands exactly as they stage them and so give the fp32 entries' bits on
+widened copies; the plain versions widen them the same way.
+:func:`flash_attention` and :class:`FlashAttention` return O and the
+gradients in the operands' dtype, as the JAX ``flash_attention`` and its
+custom VJP do, and form delta from the float32 O.
+
 On a CUDA tensor each wrapper launches its kernels or raises; only a tensor
 on the CPU takes the plain version.  Unlike the TPU path, keys are not
 padded to a block multiple: the kernels mask their ragged edge themselves.
@@ -49,6 +61,8 @@ import torch
 
 NEG_INF = -1e30  # the additive bias of a masked key
 HEAD_DIMS = (32, 64)  # the head widths the kernels are built for
+#: q, k, v dtype -> the suffix of the kernels' C entry and launch counter
+OPERAND_ENTRIES = {torch.float32: ("f32", ""), torch.bfloat16: ("bf16", "_bf16")}
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -127,15 +141,24 @@ def _check(q, k, v, bias) -> None:
         raise ValueError(f"q, k, v, bias lie on different devices: {devices}")
 
 
-def _check_kernel_operands(named) -> None:
-    """What the CUDA kernels take: fp32, contiguous, 16-byte aligned."""
-    for name, t in named:
+def _check_kernel_operands(qkv, rest) -> tuple:
+    """What the CUDA kernels take: q, k, v all float32 or all bfloat16, the
+    other operands float32; contiguous, 16-byte aligned.  Returns the
+    (C entry suffix, counter suffix) of q's dtype."""
+    if qkv[0][1].dtype not in OPERAND_ENTRIES:
+        raise TypeError(f"q must be float32 or bfloat16, got {qkv[0][1].dtype}")
+    for name, t in qkv[1:]:
+        if t.dtype != qkv[0][1].dtype:
+            raise TypeError(f"{name} must have q's dtype {qkv[0][1].dtype}, got {t.dtype}")
+    for name, t in rest:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for name, t in (*qkv, *rest):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
+            raise ValueError(f"{name} must be 16-byte aligned (vector loads)")
+    return OPERAND_ENTRIES[qkv[0][1].dtype]
 
 
 def _check_cuda(q, k, name: str) -> None:
@@ -153,29 +176,31 @@ def flash_attention_fwd(
     v: torch.Tensor,  # [B, H, Nk, d]
     bias: torch.Tensor,  # [B, Nk] additive key bias, 0 valid / -1e30 masked
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(O, lse) by K1 on CUDA, by the plain version on CPU."""
+    """(O, lse), both float32, by K1 on CUDA (its fp32 or bf16 entry, by
+    q's dtype), by the plain version on CPU."""
     _check(q, k, v, bias)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias)
     _check_cuda(q, k, "flash_attention_fwd")
-    _check_kernel_operands((("q", q), ("k", k), ("v", v), ("bias", bias)))
+    entry, counter = _check_kernel_operands((("q", q), ("k", k), ("v", v)), (("bias", bias),))
     b, h, nq, d = q.shape
     nk = k.shape[2]
 
     from ..kernels import count_launch, load
 
-    lib = load("flash_fwd")
-    o = torch.empty_like(q)
+    name = "flash_fwd" + counter
+    lib = load(name)
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
     if o.numel():
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.imp_flash_fwd_f32(
+        err = getattr(lib, f"imp_flash_fwd_{entry}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             o.data_ptr(), lse.data_ptr(), b, h, nq, nk, d, ctypes.c_void_p(stream),
         )
         if err:
-            raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
-        count_launch("flash_fwd")
+            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        count_launch(name)
     return o, lse
 
 
@@ -188,7 +213,8 @@ def flash_attention_bwd(
     lse: torch.Tensor,  # [B, H, Nq] row logsumexp
     delta: torch.Tensor,  # [B, H, Nq] rowsum(dO ⊙ O)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) by K2 then K3 on CUDA, by the plain version on CPU."""
+    """(dq, dk, dv), float32, by K2 then K3 on CUDA (their fp32 or bf16
+    entries, by q's dtype), by the plain version on CPU."""
     _check(q, k, v, bias)
     b, h, nq, d = q.shape
     if do.shape != q.shape:
@@ -201,27 +227,30 @@ def flash_attention_bwd(
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, bias, do, lse, delta)
     _check_cuda(q, k, "flash_attention_bwd")
-    _check_kernel_operands((("q", q), ("k", k), ("v", v), ("bias", bias), ("do", do),
-                            ("lse", lse), ("delta", delta)))
+    entry, counter = _check_kernel_operands(
+        (("q", q), ("k", k), ("v", v)),
+        (("bias", bias), ("do", do), ("lse", lse), ("delta", delta)))
     nk = k.shape[2]
 
     from ..kernels import count_launch, load
 
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq, dk, dv = (torch.empty(t.shape, dtype=torch.float32, device=t.device) for t in (q, k, v))
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     inputs = [t.data_ptr() for t in (q, k, v, bias, do, lse, delta)]
     if dq.numel():
-        err = load("flash_bwd_dq").imp_flash_bwd_dq_f32(
+        name = "flash_bwd_dq" + counter
+        err = getattr(load(name), f"imp_flash_bwd_dq_{entry}")(
             *inputs, dq.data_ptr(), b, h, nq, nk, d, stream)
         if err:
-            raise RuntimeError(f"flash_bwd_dq launch failed: cudaError {err}")
-        count_launch("flash_bwd_dq")
+            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        count_launch(name)
     if dk.numel():
-        err = load("flash_bwd_dkv").imp_flash_bwd_dkv_f32(
+        name = "flash_bwd_dkv" + counter
+        err = getattr(load(name), f"imp_flash_bwd_dkv_{entry}")(
             *inputs, dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, d, stream)
         if err:
-            raise RuntimeError(f"flash_bwd_dkv launch failed: cudaError {err}")
-        count_launch("flash_bwd_dkv")
+            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        count_launch(name)
     return dq, dk, dv
 
 
@@ -256,21 +285,25 @@ def flash_bwd_layout(d: int) -> dict:
 
 class FlashAttention(torch.autograd.Function):
     """O = attention(q, k, v, bias) by K1; its gradient by K2 and K3.  The
-    bias row carries no gradient (the JAX package returns zeros for it)."""
+    bias row carries no gradient (the JAX package returns zeros for it).
+    O and the gradients come back in q's dtype (K1-K3 write float32; under
+    bf16 they are rounded here, as JAX's ``flash_attention`` and custom VJP
+    round them).  The float32 O is saved for delta: JAX forms delta from
+    the kernel's float32 output, not from the rounded one."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias):
         o, lse = flash_attention_fwd(q, k, v, bias)
         ctx.save_for_backward(q, k, v, bias, o, lse)
-        return o
+        return o.to(q.dtype)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias, o, lse = ctx.saved_tensors
-        do = do.contiguous()
+        do = do.to(o.dtype).contiguous()  # dO in float32, as JAX casts it
         delta = (do * o).sum(dim=-1)  # as JAX forms it, outside the kernels
         dq, dk, dv = flash_attention_bwd(q, k, v, bias, do, lse, delta.contiguous())
-        return dq, dk, dv, None
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
 
 
 def flash_attention(
@@ -280,8 +313,9 @@ def flash_attention(
     mask: Optional[torch.Tensor] = None,  # [B, Nk] bool, True = attend
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Masked attention with the JAX signature; returns O [B, H, Nq, D] and
-    is differentiable in q, k and v."""
+    """Masked attention with the JAX signature; returns O [B, H, Nq, D] in
+    q's dtype and is differentiable in q, k and v.  q is scaled in its own
+    dtype (in bf16 under the bf16 policy), as JAX's ``q = q * scale``."""
     b, _, _, d = q.shape
     nk = k.shape[2]
     if scale is None:

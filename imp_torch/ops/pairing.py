@@ -15,7 +15,10 @@ def cosine_similarity_matrix(
 ) -> torch.Tensor:
     """sim[b,i,j] = cos(a[b,i], b[b,j]) with torch F.cosine_similarity eps
     semantics (denominator clamped at eps)."""
-    dots = torch.einsum("bid,bjd->bij", a, b)
+    # products accumulate in float32 and stay float32 under bf16 (JAX's
+    # preferred_element_type): the pairing reads float32 similarities
+    wide = torch.promote_types(torch.promote_types(a.dtype, b.dtype), torch.float32)
+    dots = torch.einsum("bid,bjd->bij", a.to(wide), b.to(wide))
     na = torch.linalg.vector_norm(a, dim=-1)
     nb = torch.linalg.vector_norm(b, dim=-1)
     denom = torch.clamp_min(na[:, :, None] * nb[:, None, :], eps)

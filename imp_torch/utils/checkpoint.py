@@ -66,3 +66,27 @@ def resume_from_checkpoint(directory: str, map_location=None) -> Tuple[Optional[
 def best_checkpoint_path(directory: str) -> Optional[str]:
     best = osp.join(directory, "model-best.ckpt")
     return best if osp.exists(best) else None
+
+
+def load_pretrained_params(fpath: str, model) -> None:
+    """Initialise ``model``'s parameters from a saved checkpoint (reference
+    ``load_pretrained_weights``, ``torchtools.py:267``; the JAX package's
+    ``load_pretrained_params``): a partial, non-strict load.  ``fpath`` is a
+    checkpoint file of :func:`save_checkpoint` or a directory holding a
+    ``checkpoint`` pointer.  A parameter takes the checkpoint's tensor of
+    the same name and shape, in its own dtype; one whose name is missing or
+    whose shape differs (another head width) keeps its fresh init.  Buffers
+    are not loaded, as the JAX package merges ``params`` only."""
+    if osp.isdir(fpath) and osp.exists(osp.join(fpath, "checkpoint")):
+        with open(osp.join(fpath, "checkpoint")) as f:
+            fpath = osp.join(fpath, f.read().strip())
+    state = load_checkpoint(fpath, map_location="cpu")
+    loaded = state.get("model", state) if isinstance(state, dict) else None
+    if not isinstance(loaded, dict):
+        raise ValueError(f"No model parameters found in checkpoint {fpath}")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            got = loaded.get(name)
+            if got is not None and tuple(got.shape) == tuple(p.shape):
+                p.copy_(got)
+    print(f"Initialized weights from {fpath} (non-strict)")

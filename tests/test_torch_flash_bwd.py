@@ -224,6 +224,27 @@ def test_tf32_split_model_of_the_backward(passes):
         assert min(errs.values()) > 1e-4, errs
 
 
+def test_tf32_split_of_bf16_operands_has_zero_low_parts():
+    """K1-K3's bf16 entries widen q, k, v to fp32 and run the fp32 entries'
+    3xTF32 products.  A bf16 value (8 significant bits) is exact in TF32
+    (11), so its split is big = x, small = 0: the two correction passes
+    add exact zeros and the three-pass product equals one TF32 pass bit for
+    bit, on the products of the backward's model above.  (Using that for
+    speed, one pass for such operands, is later work: ROADMAP §B item 3.)"""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(4, 64, 64)).astype(np.float32)).bfloat16().float()
+    big = _tf32(x)
+    assert torch.equal(big, x)
+    assert torch.count_nonzero(_tf32(x - big, nearest=False)) == 0
+    q, k = (torch.from_numpy(rng.normal(size=(2, 4, 96, 64)).astype(np.float32))
+            .bfloat16().float() for _ in range(2))
+    three, one = _mm_3xtf32(q, k.transpose(-1, -2)), _mm_1xtf32(q, k.transpose(-1, -2))
+    assert torch.equal(three, one)
+    # an fp32 operand has a nonzero low part: there the passes differ
+    xf = torch.from_numpy(rng.normal(size=(64, 64)).astype(np.float32))
+    assert torch.count_nonzero(xf - _tf32(xf)) > 0
+
+
 def _flash_fwd_model(q, k, v, bias, mm, tile=64):
     """K1's algorithm on the CPU: key tiles of ``tile`` swept with an online
     softmax, both products by ``mm``, each tile's part of O added to O in

@@ -220,6 +220,67 @@ def test_flash_bwd_kernels_match_plain_on_card(d, lengths):
         flash_attention_bwd(*(t[..., :16].contiguous() if t.dim() == 4 else t for t in args))
 
 
+def _bf16_args(d, lengths, device):
+    """_bwd_inputs with q, k, v rounded to bf16 (q scaled, as
+    ``flash_attention`` scales it in bf16) and the row statistics of their
+    float32 copies."""
+    q, k, v, bias, do, _, _ = _bwd_inputs(len(lengths), 8, 1000, d, lengths, device=device)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    with torch.no_grad():
+        o, lse = flash_attention_reference(q, k, v, bias)
+    return q, k, v, bias, do, lse, (do * o).sum(-1)
+
+
+def test_bf16_operands_take_the_widened_plain_versions_on_cpu():
+    """On CPU tensors the bf16 entries' wrappers are the plain versions on
+    widened operands: the fp32 wrappers' bits on ``.float()`` copies, fp32
+    outputs, no launch; a mix of dtypes raises before any kernel is asked."""
+    args = _bf16_args(32, (1000, 731), "cpu")
+    wide = tuple(t.float() for t in args[:3]) + args[3:]
+    before = kernels.launches()
+    for a, b in zip(flash_attention_fwd(*args[:4]), flash_attention_fwd(*wide[:4])):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+    for a, b in zip(flash_attention_bwd(*args), flash_attention_bwd(*wide)):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+    assert kernels.launches() == before
+    assert {"flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"} <= set(kernels.KERNELS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,lengths", [(32, (1000, 731, 0)), (64, (1000, 731, 1)),
+                                       (64, ("tiles", 401))])
+def test_flash_bf16_entries_give_the_f32_entries_bits_on_card(d, lengths):
+    """K1-K3's bf16 entries widen q, k, v exactly as they stage them, so on
+    the card they give the fp32 entries' bits on ``.float()`` copies (O,
+    lse, dq, dk, dv, all fp32), each entry launched once and counted apart;
+    within 1e-4 of the plain versions.  A bf16 tensor never goes to an fp32
+    entry: a mix of dtypes raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
+    args = _bf16_args(d, lengths, "cuda")
+    wide = tuple(t.float() for t in args[:3]) + args[3:]
+    before = kernels.launches()
+    with torch.no_grad():
+        o, lse = flash_attention_fwd(*args[:4])
+        grads = flash_attention_bwd(*args)
+        torch.cuda.synchronize()
+        after = kernels.launches()
+        o_w, lse_w = flash_attention_fwd(*wide[:4])
+        grads_w = flash_attention_bwd(*wide)
+        torch.cuda.synchronize()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {
+        "flash_fwd_bf16": 1, "flash_bwd_dq_bf16": 1, "flash_bwd_dkv_bf16": 1}
+    assert torch.equal(o, o_w) and torch.equal(lse, lse_w)
+    for a, b in zip(grads, grads_w):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+    o_ref, _ = flash_attention_reference(*args[:4])
+    assert (o - o_ref).abs().max().item() < 1e-4
+    for a, b in zip(grads, flash_attention_bwd_reference(*args)):
+        assert _rel(a, b) < 1e-4
+    with pytest.raises(TypeError, match="q's dtype"):
+        flash_attention_fwd(args[0], wide[1], args[2], args[3])
+
+
 def _bag(b, n, d, lengths, p_counts, seed=11, device="cpu"):
     """A normalised masked bag and its clipped assignments, as _prepare makes them."""
     g = torch.Generator(device=device).manual_seed(seed)

@@ -164,11 +164,18 @@ def test_state_dict_refuses_missing_extra_and_misshapen_keys(flax_params):
 
 
 def test_unported_options_raise():
+    """The three JAX module globals of the UMEML family now build (their
+    numerics: tests/test_torch_umeml_variants.py); unknown options still
+    raise."""
     kw = dict(num_classes=4, gene_group_indexes=GROUPS, feat_dim=FEAT, hidden=HIDDEN)
     for opt in ({"head_fused": False}, {"stacked_pairs": True},
                 {"bag_dtype": torch.bfloat16}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §A item 4"):
-            UMEML_GAN(**kw, **opt)
+        model = UMEML_GAN(**kw, **opt)
+        for name, value in opt.items():
+            assert getattr(model, name) == value
+    stacked = UMEML_GAN(**kw, stacked_pairs=True)
+    assert stacked.pair_decoder.layer.attn.to_qkv.weight.shape == (2, 3 * HIDDEN, HIDDEN)
+    assert not hasattr(stacked, "path_decoder") and not hasattr(stacked, "explainer_omic")
     # bilinear fusion is ported (tests/test_torch_tasks*.py); others are unknown
     assert hasattr(UMEML_GAN(**kw, fusion="bilinear"), "mm")
     with pytest.raises(ValueError, match="Unknown fusion"):
