@@ -174,6 +174,34 @@ Phases, each printing one JSON line (the run fails on the first error):
 26. ``trace_sessions`` — how many primer kernel records each traced window
    lost (:func:`traced`: the profiler loses the first records of a
    session, the more the older the process).
+27. ``kernel_flash_partial`` — K1-K3 under ring attention's per-chunk
+   contract at TransMIL's bag (1, 8, 10 001, 64) with its 7 314 valid keys
+   cut into 4 key chunks, the last without a valid key: K1 per chunk and
+   the logsumexp merge against one K1 call and the plain version, K2/K3
+   per chunk with the global lse and delta (dq summed, dk and dv
+   concatenated) against one K2/K3 call and the plain backward, within
+   KERNEL_TOL; dk = dv = 0 exactly on the empty chunk; 4 launches of each;
+   per-hop times beside the one call's.
+28. ``train_sp`` — two ranks of ``imp_torch.parallel.launch.spawn`` (NCCL
+   on two cards, else both on card 0 over gloo with host-staged
+   collectives; the row names the backend and the card count): one step
+   each of TransMIL under flash at (data, seq) = (1, 2), gather and ring,
+   bag 10 000 = 100²; UMEML_GAN at batch 8, bag 10 000 x 512, (1, 2)
+   gather and ring; UMEML_GAN at (2, 1), batch 4 a rank.  Each step's loss
+   and every gradient within STEP_TOL of the one-rank step on the card;
+   for UMEML_GAN under sp, whose max over prototypes lets a gradient jump
+   under rounding-level changes of the forward, a miss goes to
+   :func:`sp_layout_check` (the mesh within STEP_TOL of the same layout
+   on one rank, that layout's float64 replay equal to the one-rank
+   model's, :func:`float64_rule` on the layout, the argmax flips
+   counted); the launches per rank, each rank's peak memory and step
+   time, and the plain sp modularity passes beside K4+K5.
+Phases 27 and 28 run after phase 25.  ``python3 chip_smoke.py --sp-only``
+on a host of two cards or more (four H100s joined by NVLink) builds the kernels
+and runs ``train_sp`` over NCCL, then ``train_sp_cli``: ``torchrun
+--standalone --nproc-per-node <cards>`` of the train CLI for one epoch, one card a rank
+(TransMIL at (1, cards) ring, MBTRAIN at (cards / 2, 2) gather; each rank
+runs this script with ``--rank-cli``, which serves the seeded bags).
 Phases 22-25 run after 16 and before the CLIP phases (17-20); phase 21
 runs last, where the profiler loses the most records, then phase 26.
 ``train_step`` (phase 6) also times UMEML_GAN's batch-8 step with the fused
@@ -186,7 +214,9 @@ chain).
 Then a ``kernels`` line (every ported kernel with its launches on its
 main path: serving for K1, TransMIL training for K2/K3, MBTRAIN for
 K4/K5 (with ``plip_launches``, their launches in ``plip_umeml_gan``), UMEML
-training for K6/K7, each with a ``cmta`` object: its launches
+training for K6/K7; K1-K3 each with a ``partial`` object: its launches and
+times under the ring's per-chunk contract (phase 27) and its launches per
+rank in train_sp's TransMIL steps; each with a ``cmta`` object: its launches
 in CMTA's epoch under flash (K1-K3) or fused (K6/K7) and its times at CMTA's
 shape, K1-K3 at (1, 8, 10 001, 32), K6/K7 at (8, 128); K1-K3 each with a ``bf16`` object: its bf16 entry's launches in
 ``train_bf16`` and its times at TransMIL's bag; K2 and K3 each with its own device time
@@ -1194,7 +1224,8 @@ def chain_pinv():
     import imp_torch.ops.attention as A
 
     saved = A.pinv_newton_schulz
-    A.pinv_newton_schulz = lambda x, iters: A.moore_penrose_pinv(x, iters, "chain")
+    A.pinv_newton_schulz = lambda x, iters, batch_axis: A.moore_penrose_pinv(
+        x, iters, "chain", batch_axis)
     try:
         yield
     finally:
@@ -2284,13 +2315,8 @@ def phase_train_step_tasks(card: str, root: str, out: str):
 def float64_check(loss_and_grads, model, db, plain, names) -> dict:
     """For a step whose gradients miss the gate, or to record margins: the
     same step (same draws) through the kernels and the plain versions in
-    float32 and the plain versions in float64.  A gradient passes when the kernels are within
-    STEP_TOL of the plain version or, where float32 cannot resolve it (the
-    plain float32 gradient is itself more than STEP_TOL off the float64
-    one), when the kernels are no further from the float64 gradient than
-    twice the plain float32 version.  ``params`` lists the gradients past
-    STEP_TOL either way; ``worst`` names the farthest from float64 of each
-    float32 run, with its distance (CMTA's step runs the check always)."""
+    float32 and the plain versions in float64, judged by
+    :func:`float64_rule`."""
     import copy
 
     import torch
@@ -2301,6 +2327,20 @@ def float64_check(loss_and_grads, model, db, plain, names) -> dict:
     with plain():
         _, _, flat = loss_and_grads()
         _, _, exact = loss_and_grads(m64, db64)
+    del m64, db64
+    torch.cuda.empty_cache()
+    return float64_rule(names, kern, flat, exact)
+
+
+def float64_rule(names, kern, flat, exact) -> dict:
+    """A gradient passes when the kernels (``kern``) are within STEP_TOL of
+    the plain version (``flat``) or, where float32 cannot resolve it (the
+    plain float32 gradient is itself more than STEP_TOL off the float64
+    one, ``exact``), when the kernels are no further from the float64
+    gradient than twice the plain float32 version.  ``params`` lists the
+    gradients past STEP_TOL either way; ``worst`` names the farthest from
+    float64 of each float32 run, with its distance (CMTA's step runs the
+    check always)."""
     rows, ok, worst = {}, True, {"kernel_vs_float64": (None, 0.0), "plain_vs_float64": (None, 0.0)}
     for n, k, p, x in zip(names, kern, flat, exact):
         k_p, k_x, p_x = rel_err(k, p), rel_err(k.double(), x), rel_err(p.double(), x)
@@ -2313,8 +2353,6 @@ def float64_check(loss_and_grads, model, db, plain, names) -> dict:
             rows[n] = {"kernel_vs_plain": k_p, "kernel_vs_float64": k_x,
                        "plain_vs_float64": p_x, "max_abs_grad": x.abs().max().item(),
                        "passed": passed}
-    del m64, db64
-    torch.cuda.empty_cache()
     return {"ok": ok, "params": rows, "worst": worst}
 
 
@@ -3689,6 +3727,576 @@ def phase_umeml_gan_variants(card: str, root: str, out: str):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phases 27-28: sequence and data parallelism
+# ---------------------------------------------------------------------------
+
+#: TransMIL's bag, its keys cut into the chunks of a 4-rank ring; the last
+#: chunk (keys 7 501-10 000) holds no valid key under the 7 314-key mask
+PARTIAL_SHAPE = ("transmil_n10001_d64", 1, 8, 10001, 64, 7314)
+PARTIAL_CHUNKS = 4
+
+
+def phase_flash_partial(card: str):
+    """K1-K3 under the ring's per-chunk contract
+    (``flash_attention_partial``/``_bwd``, one launch each per hop): K1
+    over each of 4 key chunks merged by logsumexp (``ring_hop_forward``)
+    against one K1 call and the plain version; K2/K3 per chunk with the
+    global lse and delta (``ring_hop_backward``: dq summed, dk and dv
+    concatenated) against one K2/K3 call and the plain backward; dk = dv =
+    0 exactly on the chunk without a valid key; 4 launches of each; the
+    per-hop time beside the single call's."""
+    import torch
+
+    from imp_torch import kernels
+    from imp_torch.ops.flash_attention import (
+        NEG_INF, flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd,
+        flash_attention_reference,
+    )
+    from imp_torch.parallel.sequence import ring_hop_backward, ring_hop_forward
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name, b, h, n, d, n_valid = PARTIAL_SHAPE
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    q, k, v, do = (torch.randn(b, h, n, d, device=DEVICE, generator=g) for _ in range(4))
+    q = q * d**-0.5
+    valid = key_valid(n, n_valid, DEVICE)[None].expand(b, n)
+    bias = torch.where(valid, 0.0, NEG_INF).contiguous()
+    cuts = torch.tensor_split(torch.arange(n), PARTIAL_CHUNKS)
+    spans = [(int(c[0]), int(c[-1]) + 1) for c in cuts]
+    chunks = [(k[:, :, a:z].contiguous(), v[:, :, a:z].contiguous(), valid[:, a:z].contiguous())
+              for a, z in spans]
+    require(not chunks[-1][2].any() and all(c[2].any() for c in chunks[:-1]),
+            "the last chunk must hold no valid key, the others some")
+
+    def ring_forward():
+        o = torch.zeros(q.shape, device=DEVICE)
+        lse = torch.full(q.shape[:3], float("-inf"), device=DEVICE)
+        for kc, vc, mc in chunks:
+            o, lse = ring_hop_forward(q, kc, vc, mc, o, lse)
+        return o, lse
+
+    def ring_backward(lse, delta):
+        dq, dks, dvs = torch.zeros(q.shape, device=DEVICE), [], []
+        for kc, vc, mc in chunks:
+            dq_t, dk, dv = ring_hop_backward(q, kc, vc, mc, do, lse, delta)
+            dq, dks, dvs = dq + dq_t, dks + [dk], dvs + [dv]
+        return dq, dks, dvs
+
+    with torch.no_grad():
+        kernels.reset_launches()
+        o, lse = ring_forward()
+        delta = (do * o).sum(-1)
+        dq, dks, dvs = ring_backward(lse, delta)
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        o1, lse1 = flash_attention_fwd(q, k, v, bias)
+        o_ref, lse_ref = flash_attention_reference(q, k, v, bias)
+        one = flash_attention_bwd(q, k, v, bias, do, lse1, (do * o1).sum(-1))
+        ref = flash_attention_bwd_reference(q, k, v, bias, do, lse_ref, (do * o_ref).sum(-1))
+        got = (dq, torch.cat(dks, 2), torch.cat(dvs, 2))
+        torch.cuda.synchronize()
+        errs = {
+            "o_vs_one_call_rel": rel_err(o, o1), "o_vs_plain_rel": rel_err(o, o_ref),
+            "lse_vs_one_call_rel": rel_err(lse, lse1), "lse_vs_plain_rel": rel_err(lse, lse_ref),
+            **{f"{gn}_vs_one_call_rel": rel_err(a, c)
+               for gn, a, c in zip(("dq", "dk", "dv"), got, one)},
+            **{f"{gn}_vs_plain_rel": rel_err(a, c)
+               for gn, a, c in zip(("dq", "dk", "dv"), got, ref)},
+        }
+        abs_err = {"flash_fwd": max((o - o_ref).abs().max().item(),
+                                    (lse - lse_ref).abs().max().item()),
+                   "flash_bwd_dq": (got[0] - ref[0]).abs().max().item(),
+                   "flash_bwd_dkv": max((a - c).abs().max().item()
+                                        for a, c in zip(got[1:], ref[1:]))}
+        empty_chunk_zero = (int(torch.count_nonzero(dks[-1])) == 0
+                            and int(torch.count_nonzero(dvs[-1])) == 0)
+        finite = all(bool(torch.isfinite(t).all()) for t in (o, lse, *got))
+        del o1, lse1, one, ref, o_ref, lse_ref
+        iters = 5
+        times = {
+            "fwd_ring_ms": cuda_ms(ring_forward, iters),
+            "fwd_one_call_ms": cuda_ms(lambda: flash_attention_fwd(q, k, v, bias), iters),
+            "bwd_ring_ms": cuda_ms(lambda: ring_backward(lse, delta), iters),
+            "bwd_one_call_ms": cuda_ms(
+                lambda: flash_attention_bwd(q, k, v, bias, do, lse, delta), iters),
+            "fwd_hop_ms": [cuda_ms(lambda c=c: ring_hop_forward(q, *c, o, lse), iters)
+                           for c in chunks],
+            "bwd_hop_ms": [cuda_ms(lambda c=c: ring_hop_backward(q, *c, do, lse, delta), iters)
+                           for c in chunks],
+        }
+    kernels.reset_launches()  # the comparison and timing launches do not count
+    row = {
+        "phase": "kernel_flash_partial", "card": card, "shape": name, "B": b, "H": h, "N": n,
+        "d": d, "valid": n_valid, "chunks": [z - a for a, z in spans],
+        "chunk_valid_keys": [int(c[2].sum()) for c in chunks], **errs, "max_abs_err": abs_err,
+        "tol_rel": KERNEL_TOL, "finite": finite, "empty_chunk_dk_dv_zero": empty_chunk_zero,
+        "launches": launches, "launches_per_hop": {kn: 1 for kn in FLASH_PRODUCTS}, **times,
+    }
+    emit(row)
+    require(finite and empty_chunk_zero and max(errs.values()) <= KERNEL_TOL,
+            f"the ring's chunk forms disagree: {row}")
+    require(all(launches.get(kn) == PARTIAL_CHUNKS for kn in FLASH_PRODUCTS),
+            f"K1-K3 must launch once per hop: {launches}")
+    return row
+
+
+SP_BACKEND_NOTE = {"nccl": "NCCL, one card per rank",
+                   "gloo": "gloo on one shared card, every collective staged through host memory"}
+SP_STEP_TIMED = 5
+#: the runs of train_sp: (name, trainer, mesh shape (data, seq), TPU.SP_ATTENTION)
+SP_RUNS = (
+    ("transmil_gather", "TransMIL", (1, 2), "gather"),
+    ("transmil_ring", "TransMIL", (1, 2), "ring"),
+    ("umeml_gan_gather", "MBTRAIN", (1, 2), "gather"),
+    ("umeml_gan_ring", "MBTRAIN", (1, 2), "ring"),
+    ("umeml_gan_data", "MBTRAIN", (2, 1), "gather"),
+)
+
+
+def sp_trainer(root: str, out: str, trainer: str, mesh_shape, mode: str):
+    """A trainer of train_sp on this process's mesh, at dropout 0 (the mesh
+    step and the one-rank step must draw alike): TransMIL under flash at
+    TransMIL.yaml's 10 000-patch bag, or MBTRAIN on UMEML_GAN.yaml's values
+    at batch 8 (``UMEML_GAN_THROUGHPUT.yaml``); with its first train batch
+    on the card."""
+    from imp_torch.engine import build_trainer
+    from imp_torch.ops.attention import ExactSelfAttention, NystromAttention
+
+    mesh = {"TPU.MESH_AXES": ("data", "seq"), "TPU.MESH_SHAPE": tuple(mesh_shape),
+            "TPU.SP_ATTENTION": mode, "DATASET.ROOT": root, "OUTPUT_DIR": out,
+            "VERBOSE": False, "SEED": 1, "DATASET.FOLD": 1, "MODEL.DROPOUT": 0.0}
+    if trainer == "TransMIL":
+        cfg = transmil_cfg(**{"TRAINER.NAME": "TransMIL", **mesh})
+    else:
+        cfg = flagship_cfg("auto", **{"TRAINER.NAME": "MBTRAIN", **THROUGHPUT, **mesh})
+    with seeded_bags():
+        tr = build_trainer(cfg, device=DEVICE)
+        batch = next(iter(tr.train_loader))
+    for m in tr.model.modules():
+        if isinstance(m, (NystromAttention, ExactSelfAttention)):
+            m.dropout = 0.0
+    return tr, tr._device_batch(batch)
+
+
+def sp_loss(tr, model, db):
+    """One train forward's loss (task + modularity + distillation for
+    UMEML_GAN; the task loss for TransMIL)."""
+    import torch
+
+    out = model(db, train=True, generator=torch.Generator(device=db["img"].device).manual_seed(0))
+    if isinstance(out, dict):
+        return tr.task_loss(out["logits"], db) + out["modular_loss"] + out["loss_kd"]
+    return tr.task_loss(out, db)
+
+
+def sp_loss_and_grads(tr, db):
+    """The loss and parameter gradients of one step under the trainer's mesh
+    rule (1/world seeded, summed over the world): the one-rank values on
+    every rank (zeros for the parameters the loss does not reach: the GAN
+    discriminators)."""
+    import torch
+
+    names, params = zip(*tr.model.named_parameters())
+    with tr._scope():
+        loss = sp_loss(tr, tr.model, db)
+        grads = tr._grads(loss, params)
+    return tr._global_mean(loss), names, [torch.zeros_like(p) if gr is None else gr
+                                           for gr, p in zip(grads, params)]
+
+
+def sp_rank(rank: int, root: str, out: str):
+    """One rank of train_sp: for each run of ``SP_RUNS``, one step's loss
+    and gradients (rank 0 returns them), then the launches of one train
+    step, its time and this rank's peak memory; for UMEML_GAN under sp the
+    time of the plain sequence-parallel modularity passes."""
+    import torch
+
+    from imp_torch import kernels
+    from imp_torch.ops.modularity import _prepare
+    from imp_torch.parallel import sequence as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for run, trainer, shape, mode in SP_RUNS:
+        tr, db = sp_trainer(root, os.path.join(out, f"{run}_{rank}"), trainer, shape, mode)
+        loss, names, grads = sp_loss_and_grads(tr, db)
+        kw = {"train_gan": True} if trainer == "MBTRAIN" else {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        tr.train_step(db, **kw)
+        torch.cuda.synchronize()
+        row = {"launches": only_launched(kernels.launches()),
+               "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "batch_rows": int(db["img"].shape[0]), "bag_tokens": int(db["img"].shape[1]),
+               "backend": tr.mesh.world.backend}
+        times = []
+        for _ in range(SP_STEP_TIMED):
+            t0 = time.perf_counter()
+            tr.train_step(db, **kw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        row.update(step_ms_median=float(np.median(times)), step_ms=times)
+        if trainer == "MBTRAIN" and tr.mesh.seq.size > 1:
+            with torch.no_grad():
+                enc = tr.model.encode(db, train=False)
+                norm_x, cs = _prepare((enc["p_proto"], enc["h_omic"]), enc["h_path_bag"],
+                                      db["img_mask"])
+                cs = [c.contiguous() for c in cs]
+                row["sp_modularity_ms"] = cuda_ms(
+                    lambda: S._PASSES[mode](norm_x, cs, MOD_TEMP, tr.mesh.seq), 3, warmup=1)
+        if rank == 0:
+            row.update(loss=loss.item(), names=list(names),
+                       grads=[gr.detach().cpu() for gr in grads])
+        res[run] = row
+        del tr, db, grads
+        torch.cuda.empty_cache()
+    return res
+
+
+def sp_one_rank_layout(tr, mode: str):
+    """A copy of the one-rank UMEML_GAN that runs the sequence-parallel
+    code of ``mode`` on an axis of one rank (every collective the
+    identity): the one-rank step with the layout's own rounding."""
+    import copy
+
+    from imp_torch.parallel.collectives import Axis
+
+    model = copy.deepcopy(tr.model)
+    model.seq, model.sp_mode = Axis("seq"), mode
+    for blk in model.proto_g_blocks:
+        blk.cross_attn.seq = model.seq
+    return model
+
+
+#: the layout's float64 replay against the one-rank model's: the same
+#: function up to float64 rounding
+SAME_FUNCTION_TOL = 1e-9
+#: the most a float32 UMEML_GAN step at batch 8, bag 10 000 may sit from its
+#: float64 replay: the one-rank step itself (no sp code) reaches 1.23-1.29e-4
+#: on ``p_proto`` and the proto blocks' norm weights when its weights move
+#: by 2^-22 (``sp_precision_probe.py``), as pairs near a tie switch prototype
+F32_STEP_RESOLUTION = 2e-4
+
+
+@contextlib.contextmanager
+def modularity_inputs():
+    """Record (prototype sets, bag, mask) of each modularity call of
+    UMEML_GAN, one-rank or sharded, in the yielded list."""
+    import imp_torch.models.umeml_gan as U
+
+    seen, saved = [], (U.compute_modularity_pair, U.compute_modularity_pair_sp,
+                       U.compute_modularity_pair_ring)
+
+    def recording(fn):
+        def call(c_list, x, *args, **kwargs):
+            mask = kwargs.get("valid", kwargs.get("valid_local"))
+            seen.append(([c.detach() for c in c_list], x.detach(), mask))
+            return fn(c_list, x, *args, **kwargs)
+        return call
+
+    U.compute_modularity_pair, U.compute_modularity_pair_sp, U.compute_modularity_pair_ring = (
+        recording(fn) for fn in saved)
+    try:
+        yield seen
+    finally:
+        U.compute_modularity_pair, U.compute_modularity_pair_sp, U.compute_modularity_pair_ring = saved
+
+
+def argmax_flips(run_a, run_b) -> dict:
+    """The (i, j) pairs of valid tokens (i != j) whose prototype of largest
+    C[p, i] C[p, j] differs between two runs' modularity inputs (the max
+    over prototypes of the loss, first max winning), per prototype set,
+    and the pairs of each set where the two largest products of ``run_a``
+    lie within 1e-6 of each other (relative)."""
+    import torch
+
+    from imp_torch.ops.modularity import _prepare
+
+    def assignments(run):
+        c_list, x, mask = run
+        return _prepare(tuple(c.float() for c in c_list), x.float(), mask)
+
+    nx, cs_a = assignments(run_a)
+    _, cs_b = assignments(run_b)
+    valid = nx.abs().sum(dim=2) > 0
+    n = nx.shape[1]
+    flips, near, pairs = [0] * len(cs_a), [0] * len(cs_a), 0
+    with torch.no_grad():
+        for r0 in range(0, n, 512):
+            r1 = min(r0 + 512, n)
+            vm = valid[:, r0:r1, None] & valid[:, None, :]
+            ii = torch.arange(r0, r1, device=vm.device)
+            vm[:, ii - r0, ii] = False
+            pairs += int(vm.sum())
+            for k, (ca, cb) in enumerate(zip(cs_a, cs_b)):
+                prod_a = ca[:, :, r0:r1, None] * ca[:, :, None, :]  # [B, P, R, N]
+                prod_b = cb[:, :, r0:r1, None] * cb[:, :, None, :]
+                flips[k] += int(((prod_a.argmax(dim=1) != prod_b.argmax(dim=1)) & vm).sum())
+                top2 = prod_a.topk(2, dim=1).values
+                gap = (top2[:, 0] - top2[:, 1]) / top2[:, 0].clamp_min(1e-30)
+                near[k] += int(((gap < 1e-6) & (top2[:, 0] > 0) & vm).sum())
+                del prod_a, prod_b, top2, gap
+    return {"flipped_pairs": flips, "near_tied_pairs": near, "valid_pairs": pairs}
+
+
+def sp_layout_check(ref: dict, mesh_grads, mode: str) -> dict:
+    """For a UMEML_GAN mesh step whose gradients miss STEP_TOL against the
+    one-rank step: the same sequence-parallel code on an axis of one rank
+    (:func:`sp_one_rank_layout`), with fixed gates: (1) the mesh within
+    STEP_TOL of that layout run (what the collectives change); (2) the
+    layout's float64 replay within SAME_FUNCTION_TOL of the one-rank
+    model's float64 replay (the sp code computes the one-rank function);
+    (3) :func:`float64_rule` on the layout (its kernels against its plain
+    versions, its float64 replay arbitrating), and every gradient of the
+    layout within F32_STEP_RESOLUTION of its float64 replay (a float32
+    fault of the sp code that float64 hides).  Records the pairs whose
+    prototype argmax differs between the layout, the one-rank step and the
+    float64 replay (:func:`argmax_flips`), the cause of the layout's
+    distance to the one-rank float32 step."""
+    import copy
+
+    import torch
+
+    tr, db, names = ref["tr"], ref["db"], ref["names"]
+    layout = sp_one_rank_layout(tr, mode)
+
+    def loss_and_grads(model, batch):
+        params = [dict(model.named_parameters())[n] for n in names]
+        with tr._scope():
+            loss = sp_loss(tr, model, batch)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return [torch.zeros_like(p) if gr is None else gr for p, gr in zip(params, grads)]
+
+    db64 = {k: v.double() if v.is_floating_point() else v for k, v in db.items()}
+    with modularity_inputs() as seen:
+        kern = loss_and_grads(layout, db)
+        with plain_everything():
+            flat = loss_and_grads(layout, db)
+            m64 = copy.deepcopy(layout).double()
+            exact = loss_and_grads(m64, db64)
+            del m64
+            if "float64" not in ref:  # the one-rank model's replay, once per trainer
+                m64 = copy.deepcopy(tr.model).double()
+                ref["float64"] = loss_and_grads(m64, db64)
+                del m64
+        if "inputs" not in ref:
+            with torch.no_grad(), tr._scope():
+                sp_loss(tr, tr.model, db)
+    if "inputs" not in ref:
+        ref["inputs"] = seen[-1]
+    layout_in, exact_in = seen[0], seen[2]
+    mesh = {n: rel_err(mg.to(DEVICE), lg) for n, mg, lg in zip(names, mesh_grads, kern)}
+    same = {n: rel_err(x, o) for n, x, o in zip(names, exact, ref["float64"])}
+    check = {
+        "mesh_vs_layout": max(mesh.values()), "mesh_vs_layout_param": max(mesh, key=mesh.get),
+        "layout_float64_vs_one_rank_float64": max(same.values()),
+        "layout_vs_one_rank": max(rel_err(lg, og) for lg, og in zip(kern, ref["grads"])),
+        "float64": float64_rule(names, kern, flat, exact),
+        "layout_vs_float64": max(rel_err(lg.double(), x) for lg, x in zip(kern, exact)),
+        "one_rank_vs_float64": max(rel_err(og.double(), x)
+                                   for og, x in zip(ref["grads"], ref["float64"])),
+        "argmax_flips": {"layout_vs_one_rank": argmax_flips(layout_in, ref["inputs"]),
+                         "layout_vs_float64": argmax_flips(layout_in, exact_in),
+                         "one_rank_vs_float64": argmax_flips(ref["inputs"], exact_in)},
+    }
+    check["ok"] = (check["mesh_vs_layout"] <= STEP_TOL
+                   and check["layout_float64_vs_one_rank_float64"] <= SAME_FUNCTION_TOL
+                   and check["float64"]["ok"]
+                   and check["layout_vs_float64"] <= F32_STEP_RESOLUTION)
+    del layout, kern, flat, exact, db64, seen
+    torch.cuda.empty_cache()
+    return check
+
+
+def phase_train_sp(card: str, root: str, out: str):
+    """Two ranks of :func:`imp_torch.parallel.launch.spawn`: NCCL where
+    there are two cards, else both on card 0 over gloo with host-staged
+    collectives.  Each run of ``SP_RUNS`` (TransMIL under flash at the
+    10 000 = 100² bag, gather and ring; UMEML_GAN at batch 8, bag
+    10 000 x 512, gather and ring; UMEML_GAN at (2, 1), batch 4 a rank)
+    holds one step's loss and every gradient against the one-rank step on
+    the card within STEP_TOL (for UMEML_GAN under sp, where the max over
+    prototypes makes a gradient jump under rounding-level changes of the
+    forward, :func:`sp_layout_check` judging a miss), and
+    records each rank's launches (K1-K3 for TransMIL; no K4/K5 under sp,
+    where the plain row-band passes run; K4/K5 once a step at (2, 1)),
+    peak memory and step time with its backend, and the plain sp
+    modularity passes beside K4+K5 on one rank."""
+    import torch
+
+    from imp_torch import kernels
+    from imp_torch.ops.modularity import _prepare, modularity_passes
+    from imp_torch.parallel.launch import spawn
+
+    count = torch.cuda.device_count()
+    backend = "nccl" if count >= 2 else "gloo"
+    print(f"chip_smoke: train_sp on {count} card(s) over {backend}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    refs = {}
+    for trainer in ("TransMIL", "MBTRAIN"):
+        tr, db = sp_trainer(root, os.path.join(out, f"one_{trainer}"), trainer, (1, 1), "gather")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, names, grads = sp_loss_and_grads(tr, db)
+        torch.cuda.synchronize()
+        refs[trainer] = {"loss": loss.item(), "names": names, "grads": grads, "tr": tr, "db": db,
+                         "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if trainer == "MBTRAIN":  # K4+K5 on one rank at the same bag
+            with torch.no_grad():
+                enc = tr.model.encode(db, train=False)
+                norm_x, cs = _prepare((enc["p_proto"], enc["h_omic"]), enc["h_path_bag"],
+                                      db["img_mask"])
+                cs = [c.contiguous() for c in cs]
+                refs[trainer]["k4_k5_ms"] = cuda_ms(
+                    lambda: modularity_passes(norm_x, cs, MOD_TEMP), 5)
+                del enc, norm_x, cs
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = spawn(sp_rank, 2, (root, out), device=DEVICE, timeout=600)
+    spawn_s = time.perf_counter() - t0
+    rows = {}
+    for run, trainer, shape, mode in SP_RUNS:
+        ref, mine = refs[trainer], got[0][run]
+        errs = {n: rel_err(a.to(DEVICE), b)
+                for n, a, b in zip(ref["names"], mine["grads"], ref["grads"])}
+        worst = max(errs, key=errs.get)
+        check = {"loss_rel": abs(mine["loss"] - ref["loss"]) / max(abs(ref["loss"]), 1e-30),
+                 "grad_rel": errs[worst], "worst_param": worst, "params": len(errs),
+                 "tol_rel": STEP_TOL}
+        ok = check["loss_rel"] <= STEP_TOL
+        if errs[worst] > STEP_TOL:
+            require(trainer == "MBTRAIN" and shape[1] > 1,
+                    f"train_sp {run}: the mesh step disagrees with the one-rank step: {check}")
+            check["layout"] = sp_layout_check(ref, mine["grads"], mode)
+            ok &= check["layout"]["ok"]
+        keys = ("launches", "peak_device_gib", "step_ms_median", "step_ms", "batch_rows",
+                "bag_tokens", "backend", "sp_modularity_ms")
+        per_rank = [{k: r[run][k] for k in keys if k in r[run]} for r in got]
+        row = {"phase": "train_sp", "run": run, "card": card, "cards": count,
+               "backend": backend, "backend_note": SP_BACKEND_NOTE[backend],
+               "mesh": {"data": shape[0], "seq": shape[1]}, "sp_attention": mode,
+               "check": check, "ranks": per_rank,
+               "one_rank_peak_device_gib": ref["peak_device_gib"]}
+        if trainer == "MBTRAIN":
+            row["one_rank_k4_k5_ms"] = ref["k4_k5_ms"]
+        emit(row)
+        require(ok, f"train_sp {run}: the mesh step disagrees with the one-rank step: {check}")
+        for pr in per_rank:
+            la = pr["launches"]
+            if trainer == "TransMIL":
+                require(all(la.get(kn, 0) > 0 for kn in FLASH_PRODUCTS),
+                        f"train_sp {run}: K1-K3 did not launch on a rank: {la}")
+            elif shape[1] > 1:
+                require(not any(kn.startswith("modularity") and c for kn, c in la.items()),
+                        f"train_sp {run}: K4/K5 launched under sp: {la}")
+            else:
+                require(la.get("modularity_deg") == 1 and la.get("modularity_combined") == 1,
+                        f"train_sp {run}: K4/K5 must launch once a step a rank: {la}")
+        rows[run] = row
+    emit({"phase": "train_sp_summary", "card": card, "cards": count, "backend": backend,
+          "spawn_seconds": spawn_s})
+    refs.clear()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    return rows
+
+
+#: the train CLI runs of ``--sp-only`` under torchrun, one rank per card:
+#: (trainer, TPU.MESH_SHAPE as a function of the card count, SP_ATTENTION)
+SP_CLI_RUNS = (("TransMIL", lambda n: (1, n), "ring"),
+               ("MBTRAIN", lambda n: (n // 2, 2), "gather"))
+
+
+def rank_cli(root: str, out: str, trainer: str, shape: str, mode: str) -> int:
+    """One torchrun rank of ``python -m imp_torch.tools.train`` for one epoch
+    on the seeded bags (the card's host has no h5py): TransMIL under flash
+    (TransMIL.yaml) or MBTRAIN on UMEML_GAN.yaml's values, on the mesh
+    ``shape`` of ('data', 'seq'); writes ``rank_cli<RANK>.json`` beside
+    ``out`` (the ranks' stdout interleaves)."""
+    from imp_torch import kernels
+    from imp_torch.tools.train import run
+
+    if trainer == "TransMIL":
+        argv = transmil_argv(root, out) + ["OPTIM.MAX_EPOCH", "1"]
+    else:
+        argv = (["--root", root, "--seed", "1", "--trainer", "MBTRAIN", "--config-file",
+                 os.path.join(CONFIGS, "Survival", "UMEML_GAN.yaml"), "--output-dir", out,
+                 "--device", DEVICE] + flagship_opts(**{"OPTIM.MAX_EPOCH": 1}))
+    argv += ["TPU.MESH_AXES", "('data','seq')", "TPU.MESH_SHAPE", shape,
+             "TPU.SP_ATTENTION", mode]
+    with seeded_bags():
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        result = run(argv)
+        seconds = time.perf_counter() - t0
+    rank = int(os.environ["RANK"])
+    with open(f"{out}.rank_cli{rank}.json", "w") as f:
+        json.dump({"rank": rank, "trainer": trainer, "mesh": shape, "sp_attention": mode,
+                   "result": result, "seconds": seconds,
+                   "launches": only_launched(kernels.launches())}, f)
+    return 0
+
+
+def phase_train_sp_cli(card: str, root: str, out: str) -> dict:
+    """``torchrun --standalone --nproc-per-node <cards>`` (a free rendezvous
+    port on localhost) of the train CLI through
+    :func:`rank_cli` for each run of ``SP_CLI_RUNS`` (one epoch; NCCL, one
+    card a rank): every rank exits 0 and reports the same result."""
+    import torch
+
+    n = torch.cuda.device_count()
+    rows = {}
+    for trainer, shape_of, mode in SP_CLI_RUNS:
+        shape, run_out = str(shape_of(n)), os.path.join(out, f"cli_{trainer}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            ["torchrun", "--standalone", "--nproc-per-node", str(n), os.path.abspath(__file__),
+             "--rank-cli", root, run_out, trainer, shape, mode],
+            capture_output=True, text=True, timeout=600)
+        ranks = []
+        for r in range(n):
+            path = f"{run_out}.rank_cli{r}.json"
+            if os.path.exists(path):
+                with open(path) as f:
+                    ranks.append(json.load(f))
+        row = {"phase": "train_sp_cli", "card": card, "cards": n, "trainer": trainer,
+               "mesh": shape, "sp_attention": mode, "rc": proc.returncode,
+               "seconds": time.perf_counter() - t0, "ranks": ranks}
+        emit(row)
+        require(proc.returncode == 0 and len(ranks) == n
+                and len({r["result"] for r in ranks}) == 1,
+                f"torchrun of the train CLI failed: {row}\n{proc.stderr[-4000:]}")
+        rows[trainer] = row
+    return rows
+
+
+def sp_only() -> int:
+    """``python3 chip_smoke.py --sp-only`` on a host of several cards: the
+    kernels built, then ``train_sp`` (NCCL between two of the cards) and
+    ``train_sp_cli`` (every card a rank), the card line and the ok line."""
+    import torch
+
+    from imp_torch import kernels
+
+    if torch.cuda.device_count() < 2:
+        print("chip_smoke --sp-only: needs two cards or more", file=sys.stderr)
+        return 2
+    card = card_line()
+    kernels.build()
+    for name in kernels.KERNELS:
+        kernels.load(name)
+    with tempfile.TemporaryDirectory(prefix="imp_torch_sp_") as tmp:
+        root = make_train_tree(os.path.join(tmp, "tree"))
+        phase_train_sp(card, root, os.path.join(tmp, "sp"))
+        phase_train_sp_cli(card, root, os.path.join(tmp, "sp_cli"))
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3762,6 +4370,8 @@ def main() -> int:
         clocked("umeml_bsm", phase_umeml_bsm, card, root, os.path.join(tmp, "bsm"))
         clocked("umeml_gan_variants", phase_umeml_gan_variants, card, root,
                 os.path.join(tmp, "variants"))
+        partial_row = clocked("kernel_flash_partial", phase_flash_partial, card)
+        sp_rows = clocked("train_sp", phase_train_sp, card, root, os.path.join(tmp, "sp"))
         clocked("clip_vit_b16", phase_clip_vit_b16, card)
         clocked("clip_rn50", phase_clip_rn50, card)
         clocked("train_clipomic", phase_train_clipomic, card, root, os.path.join(tmp, "clipomic"))
@@ -3807,6 +4417,27 @@ def main() -> int:
                 "max_abs_err": max(r["max_abs_err"] for (k, _), r in bf16_rows.items()
                                    if k == name)}
 
+    def partial_entry(name):
+        """The kernel under the ring's per-chunk contract: launches per hop
+        and per ring of kernel_flash_partial, its per-hop and one-call
+        times there, and its launches per rank in train_sp's TransMIL
+        steps (ring and gather)."""
+        side = "fwd" if name == "flash_fwd" else "bwd"
+        return {
+            "shape": partial_row["shape"], "chunks": partial_row["chunks"],
+            "launches_per_hop": partial_row["launches_per_hop"][name],
+            "launches": partial_row["launches"][name],
+            "hop_ms": partial_row[f"{side}_hop_ms"],
+            "ring_ms": partial_row[f"{side}_ring_ms"],
+            "one_call_ms": partial_row[f"{side}_one_call_ms"],
+            **({"covers": "K2 and K3 together (one flash_attention_bwd call a hop)"}
+               if side == "bwd" else {}),
+            "max_abs_err": partial_row["max_abs_err"][name],
+            "train_sp_launches_per_rank": {
+                run: [r["launches"].get(name, 0) for r in sp_rows[run]["ranks"]]
+                for run in ("transmil_ring", "transmil_gather")},
+        }
+
     def modularity_entry(name):
         main = mrows[(name, MOD_MAIN_SHAPE)]
         return {
@@ -3831,7 +4462,7 @@ def main() -> int:
             "bound_by": main["bound_by"], "library_ms": main["library_ms"], "pair": main["pair"],
             "share_of_bound": main["share_of_bound"],
             "dynamic_smem_bytes": main["dynamic_smem_bytes"], "ptxas": main["ptxas"],
-            "cmta": cmta_entry(name), "bf16": bf16_entry(name),
+            "cmta": cmta_entry(name), "bf16": bf16_entry(name), "partial": partial_entry(name),
         }
 
     def pinv_entry(name):
@@ -3859,6 +4490,7 @@ def main() -> int:
             else "operations",
             "library_ms": per_forward("library_ms"),
             "cmta": cmta_entry("flash_fwd"), "bf16": bf16_entry("flash_fwd"),
+            "partial": partial_entry("flash_fwd"),
         },
         *(flash_bwd_entry(n) for n in ("flash_bwd_dq", "flash_bwd_dkv")),
         modularity_entry("modularity_deg"),
@@ -3872,4 +4504,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--rank-cli"]:
+        sys.exit(rank_cli(*sys.argv[2:7]))
+    sys.exit(sp_only() if sys.argv[1:] == ["--sp-only"] else main())

@@ -12,7 +12,7 @@ from typing import Dict
 from torch import nn
 
 from . import TRAINER_REGISTRY
-from .trainer import OmicTrainer, StandardTrainer
+from .trainer import OmicTrainer, StandardTrainer, validated_sp_mode
 
 
 @TRAINER_REGISTRY.register()
@@ -23,9 +23,20 @@ class ABMIL(StandardTrainer):
 @TRAINER_REGISTRY.register()
 class TransMIL(StandardTrainer):
     """TransMIL; its two TransLayers follow ``TPU.ATTENTION`` (under
-    ``flash``, K1 forward and K2/K3 backward on the card)."""
+    ``flash``, K1 forward and K2/K3 backward on the card).  On a mesh whose
+    ``seq`` axis has more than one rank the bag splits over it, in the
+    ``TPU.SP_ATTENTION`` layout, and the TransLayers run exact attention
+    (K1–K3 on each rank's band)."""
 
     MODEL_NAME = "transmil"
+
+    def network_seq_axis(self):
+        return self.mesh.seq if self.mesh.seq.size > 1 else None
+
+    def build_kwargs(self) -> Dict:
+        if self.sp_axis is None:
+            return {}
+        return {"seq": self.sp_axis, "sp_mode": validated_sp_mode(self.cfg)}
 
 
 @TRAINER_REGISTRY.register()

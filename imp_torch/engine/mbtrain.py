@@ -65,6 +65,17 @@ Each training epoch renders its importance dumps to PNGs beside them.
 Both plots import matplotlib when they run and return without output where
 it is absent, as JAX does.  ``TPU.REMAT``/``TPU.DONATE`` need no
 counterpart.
+
+On a mesh (``TPU.MESH_AXES``, see :mod:`imp_torch.engine.trainer`) every
+optimizer phase — generator, the two discriminators, the main update — and
+the CCA epoch take the gradient of the global batch mean (JAX's ``_gmean``:
+1/world of each loss seeded, gradients summed over the world).  A ``seq``
+axis of more than one rank splits UMEML_GAN's bag (``sp_mode`` from
+``TPU.SP_ATTENTION``: the prototype cross-attention over every rank's keys,
+the modularity pair in the gather or ring layout); UMEML raises, as in JAX.
+The CCA loss and the similarity alignment read the whole batch, gathered
+over ``data``; importances and similarity grids are gathered onto every
+rank and written by rank 0.
 """
 
 from __future__ import annotations
@@ -77,11 +88,12 @@ import numpy as np
 import torch
 
 from . import TRAINER_REGISTRY
-from .precision import amp_call, bf16_matmul_scope
-from .trainer import TrainerBase, device_batch
+from .precision import amp_call
+from .trainer import TrainerBase, validated_sp_mode
 from ..losses.survival import cca_loss, similarity_alignment_loss
 from ..models import build_model, survival_num_classes
 from ..models.layers import sow_similarity
+from ..parallel import all_gather, all_reduce_grads, is_primary
 from ..optim import build_optimizer, gan_optimizer
 from ..optim.builders import Chain, Optimizer, ScaleByAdam, ScaleByLearningRate
 from ..utils.tools import count_num_param
@@ -115,6 +127,12 @@ class MBTRAIN(TrainerBase):
         self.is_gan = cfg.MODEL.NAME in ("umeml_gan", "umeml_gan_plot")
         genes = ({"gene_group_indexes": self.dm.gene_group_indexes or ()} if self.is_gan
                  else {"omic_dim": self.dm.omic_dim})
+        if self.mesh.seq.size > 1:
+            if not self.is_gan:
+                raise ValueError("sequence parallelism is implemented for the umeml_gan "
+                                 "trainer path only")
+            self.sp_axis = self.mesh.seq
+            genes.update(seq=self.sp_axis, sp_mode=validated_sp_mode(cfg))
         self.model = build_model(
             cfg.MODEL.NAME, cfg=cfg,
             num_classes=survival_num_classes(cfg.TASK.NAME, self.num_classes),
@@ -122,6 +140,7 @@ class MBTRAIN(TrainerBase):
             **genes,
         )
         self.init_weights(self.model)
+        self.check_mesh(self.model)
         self.omic_means = self.dm.compute_omic_means()
         self._train_importance = None  # a list of the steps' importances during run_epoch
         print(f"# params: {count_num_param(self.model):,}")
@@ -170,19 +189,19 @@ class MBTRAIN(TrainerBase):
             insample_mask if insample_mask is not None else np.zeros((b, g), np.int32)
         )
         out["omic_means"] = np.asarray(self.omic_means, np.float32)
-        return device_batch(out, self.device)
+        self._batch_rows = b  # the host batch's slides, before any data-axis pad
+        return super()._device_batch(out)
 
     # ------------------------------------------------------------------ #
     # one training step                                                    #
     # ------------------------------------------------------------------ #
-    @staticmethod
-    def _step(opt: Optimizer, loss: torch.Tensor) -> None:
-        opt.step(torch.autograd.grad(loss, opt.params, allow_unused=True))
+    def _step(self, opt: Optimizer, loss: torch.Tensor) -> None:
+        opt.step(self._grads(loss, opt.params))
 
     def train_step(self, db: Dict[str, torch.Tensor], train_gan: bool = False,
                    replace_ratio: float = 0.0) -> Dict[str, torch.Tensor]:
         """One MBTRAIN step on a device batch; returns device scalars."""
-        with bf16_matmul_scope(self.cdtype):
+        with self._scope():
             return self._train_step(db, train_gan, replace_ratio)
 
     def bsm_permutation(self, npad: int) -> torch.Tensor:
@@ -224,7 +243,7 @@ class MBTRAIN(TrainerBase):
                 out = amp_call(model, "forward", self.cdtype, db, train=True, generator=g)
                 loss = self.task_loss(out["logits"], db) + out["modular_loss"]
             self._step(self.main_opt, loss)
-            return {"loss": loss.detach()}
+            return {"loss": self._global_mean(loss)}
         enc = amp_call(model, "encode", self.cdtype, db, train=True, generator=g)
         metrics = {}
         if train_gan:
@@ -236,15 +255,16 @@ class MBTRAIN(TrainerBase):
             ):
                 loss = loss_fn(hp, ho)
                 self._step(opt, loss)
-                metrics[name] = loss.detach()
+                metrics[name] = self._global_mean(loss)
         out = amp_call(model, "finish", self.cdtype, enc, db, train=True,
                        replace_ratio=replace_ratio, generator=g)
         loss = self.task_loss(out["logits"], db) + out["modular_loss"] + out["loss_kd"]
         self._step(self.main_opt, loss)
-        metrics["loss"] = loss.detach()
+        metrics["loss"] = self._global_mean(loss)
         if self._train_importance is not None:  # inside run_epoch
-            self._train_importance.append((out["importance_path"].detach(),
-                                           out["importance_omic"].detach()))
+            n = getattr(self, "_batch_rows", out["logits"].shape[0])
+            self._train_importance.append((self._gather_rows(out["importance_path"], n),
+                                           self._gather_rows(out["importance_omic"], n)))
         return metrics
 
     # ------------------------------------------------------------------ #
@@ -287,11 +307,17 @@ class MBTRAIN(TrainerBase):
         return [f"gan={train_gan}", f"rr={replace_ratio:.3f}"]
 
     def _cca_forward(self, db, train: bool):
-        """(h_path, h_omic flattened per slide, similarity-alignment loss)."""
-        out = self.model(db, train=train, cca=True, generator=self.generator if train else None)
+        """(h_path, h_omic flattened per slide, similarity-alignment loss);
+        the loss over the whole batch, gathered over ``data``."""
+        with self._scope():
+            out = self.model(db, train=train, cca=True,
+                             generator=self.generator if train else None)
         b = out["h_path"].shape[0]
-        sim = similarity_alignment_loss(out["p_proto_before"].reshape(b, -1),
-                                        out["h_omic_bag_before"].reshape(b, -1))
+        pp = out["p_proto_before"].reshape(b, -1)
+        hb = out["h_omic_bag_before"].reshape(b, -1)
+        if self.mesh.data.size > 1:
+            pp, hb = all_gather(pp, self.mesh.data, 0), all_gather(hb, self.mesh.data, 0)
+        sim = similarity_alignment_loss(pp, hb)
         return out["h_path"].reshape(b, -1), out["h_omic"].reshape(b, -1), sim
 
     def run_epoch_cca(self):
@@ -324,9 +350,16 @@ class MBTRAIN(TrainerBase):
 
     def cca_update(self, group, cca_opt: Optimizer, train: bool) -> torch.Tensor:
         """One CCA update over a group of (batch, generator state, hp, ho,
-        sim); returns the group's cca_loss."""
-        hp_all = torch.cat([g[2] for g in group]).requires_grad_()
-        ho_all = torch.cat([g[3] for g in group]).requires_grad_()
+        sim); returns the group's cca_loss.  On a mesh the cca_loss reads
+        every data shard's rows; each rank backpropagates the cotangents of
+        its own rows (seeded 1/seq, the rows being replicated over seq) and
+        1/world of the similarity term, and the gradients sum over the
+        world."""
+        mesh = self.mesh
+        hp_all = torch.cat([self._gather_rows(g[2], len(g[2]) * mesh.data.size)
+                            for g in group]).requires_grad_()
+        ho_all = torch.cat([self._gather_rows(g[3], len(g[3]) * mesh.data.size)
+                            for g in group]).requires_grad_()
         cca_val = cca_loss(hp_all, ho_all)
         g_hp, g_ho = torch.autograd.grad(cca_val, (hp_all, ho_all))
         w_sim = 1.0 / len(group)
@@ -334,15 +367,17 @@ class MBTRAIN(TrainerBase):
         offset = 0
         for db, rng_state, hp0, _, _ in group:
             b = hp0.shape[0]
+            mine = slice(offset + mesh.data.index * b, offset + (mesh.data.index + 1) * b)
             self.generator.set_state(rng_state)  # the same dropout as the first pass
             hp, ho, sim = self._cca_forward(db, train)
-            surrogate = ((hp * g_hp[offset:offset + b]).sum()
-                         + (ho * g_ho[offset:offset + b]).sum() + w_sim * sim)
-            grads = torch.autograd.grad(surrogate, self.main_params, allow_unused=True)
+            surrogate = ((hp * g_hp[mine]).sum() + (ho * g_ho[mine]).sum()) / mesh.seq.size
+            surrogate = surrogate + w_sim * sim / mesh.size
+            grads = all_reduce_grads(
+                torch.autograd.grad(surrogate, self.main_params, allow_unused=True), mesh.world)
             for acc, gi in zip(grad_sum, grads):
                 if gi is not None:
                     acc += gi
-            offset += b
+            offset += b * mesh.data.size
         cca_opt.step(grad_sum)
         return cca_val.detach()
 
@@ -429,11 +464,14 @@ class MBTRAIN(TrainerBase):
         self._imp_files = {}
         for mod in ("path", "omic"):
             fp = osp.join(self.output_dir, f"{prefix}_{mod}.txt")
-            open(fp, "w").close()
+            if is_primary():
+                open(fp, "w").close()
             self._imp_files[mod] = fp
 
     def _dump_importance(self, imp_path: np.ndarray, imp_omic: np.ndarray) -> None:
-        """Append one line per slide: its prototypes' importances."""
+        """Append one line per slide: its prototypes' importances (rank 0)."""
+        if not is_primary():
+            return
         for mod, arr in (("path", imp_path), ("omic", imp_omic)):
             with open(self._imp_files[mod], "a") as f:
                 for row in arr:
@@ -443,10 +481,10 @@ class MBTRAIN(TrainerBase):
         """The pre-pairing path × omics similarity grid of each slide of a
         host batch ([B, P + 1, P + 1]): the bottleneck's first pass of the
         float32 eval forward, as JAX's sown ``similarity`` (no ablation)."""
-        b = batch["img"].shape[0]
-        with torch.no_grad(), sow_similarity(self.model.bottleattn) as sown:
-            self.model(self._device_batch(batch), train=False)
-        return sown[0][:b]
+        db = self._device_batch(batch)
+        with torch.no_grad(), self._scope(), sow_similarity(self.model.bottleattn) as sown:
+            self.model(db, train=False)
+        return self._gather_rows(sown[0][:db["img"].shape[0]], batch["img"].shape[0])
 
     def _plot_similarity(self, loader) -> None:
         """One ``plots/sim_<patient>.png`` block grid per slide of
@@ -463,7 +501,9 @@ class MBTRAIN(TrainerBase):
         plot_dir = osp.join(self.output_dir, "plots")
         os.makedirs(plot_dir, exist_ok=True)
         for batch in loader:
-            sim = self.similarity_grids(batch).float().cpu().numpy()
+            sim = self.similarity_grids(batch).float().cpu().numpy()  # every rank's forward
+            if not is_primary():
+                continue
             for i, pid in enumerate(batch["patient_id"]):
                 grid = sim[i]
                 grid = (grid - grid.min()) / (grid.max() - grid.min() + 1e-6)
@@ -494,6 +534,8 @@ class MBTRAIN(TrainerBase):
             matplotlib.use("Agg")
             import matplotlib.pyplot as plt
         except Exception:
+            return
+        if not is_primary():
             return
         for fp in getattr(self, "_imp_files", {}).values():
             if not osp.isfile(fp) or osp.getsize(fp) == 0:  # UMEML dumps no importances

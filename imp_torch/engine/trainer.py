@@ -13,9 +13,24 @@ head of 4 bins) and Classification, Grading and Subtyping (cross-entropy;
 accuracy, AUC and macro-F1 from ``evaluation/evaluators.py``).
 
 One process drives one device (``cuda`` unless the caller passes
-``device="cpu"``); the JAX package's mesh, sequence parallelism and device
-bag cache have no counterpart here yet.  Randomness comes from one
-``torch.Generator`` on the device, seeded from ``cfg.SEED``.
+``device="cpu"``).  Under ``torchrun`` (or
+:func:`imp_torch.parallel.launch.spawn`) the ranks form the mesh of
+``TPU.MESH_AXES``/``TPU.MESH_SHAPE`` (:func:`imp_torch.parallel.make_mesh`;
+axes ``data`` and ``seq``, one rank per card on ``cuda:LOCAL_RANK``); a
+single process is the world of one.  Every rank loads the whole global
+batch and keeps its part (:meth:`TrainerBase._device_batch`: dim 0 split
+over ``data`` after a wrap-pad, the bag's token dim over ``seq`` for a net
+that has a sequence-parallel layout, ``omic_means`` whole).  A step seeds
+1/world of its replicated loss and sums the parameter gradients over the
+world (:meth:`TrainerBase._grads`), which gives the single-device gradient
+of the global batch mean (JAX's ``pmean`` over ``data``); evaluation
+gathers the outputs over ``data`` onto every rank, so val selection agrees
+everywhere; rank 0 alone writes checkpoints, metric lines and dumps.
+``TPU.SP_ATTENTION`` (``gather``/``ring``) picks the sequence-parallel
+layout of TransMIL and UMEML_GAN.  The JAX package's device bag cache has
+no counterpart yet.  Randomness comes from one ``torch.Generator`` on the
+device, seeded from ``cfg.SEED`` plus the rank's data index (each data
+shard draws its own dropout; the ranks of one seq group draw alike).
 
 ``TRAINER.PREC`` bf16 (or fp16/amp) runs every train and eval forward of a
 trainer through :func:`imp_torch.engine.precision.amp_call` (bfloat16
@@ -28,6 +43,7 @@ fresh model before any parameter is frozen
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os.path as osp
 import time
@@ -39,9 +55,22 @@ from torch import nn
 
 from ..data import DataManager
 from ..evaluation import build_evaluator
+from ..errors import deferred
 from ..losses.survival import build_loss, hazards_to_survival
 from ..models import build_model, survival_num_classes
+from ..ops.attention import set_batch_axis
 from ..optim import build_optimizer, lr_at_epoch
+from ..parallel import (
+    all_reduce_grads,
+    barrier,
+    fetch_global,
+    is_primary,
+    make_mesh,
+    maybe_initialize_distributed,
+    replicate_module,
+    shard_batch,
+)
+from ..parallel.collectives import _all_reduce
 from ..utils.checkpoint import (
     best_checkpoint_path,
     load_checkpoint,
@@ -67,11 +96,52 @@ ARRAY_KEYS = (
 )
 
 
+#: batch fields that are not per sample: whole on every rank
+REPLICATED_KEYS = ("omic_means",)
+#: the bag's fields, whose token dim a sequence-parallel net splits over seq
+SEQ_SHARDED_KEYS = ("img", "img_mask")
+
+
 def device_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
     """The array fields of a host batch as tensors on ``device``; host
     fields (patient_id, index) stay behind."""
     return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()
             if k in ARRAY_KEYS}
+
+
+def pad_ragged_dim0(arrays: Dict, n_shards: int) -> Dict:
+    """Wrap-pad every per-sample field's dim 0 to a multiple of ``n_shards``
+    (pad rows repeat real samples, ``idx % B``, as JAX pads).  Evaluation
+    drops the pad rows after the gather; a training batch that pads
+    unevenly weighs its samples slightly differently from one device."""
+    per_sample = [k for k in arrays if k not in REPLICATED_KEYS]
+    if not per_sample:
+        return arrays
+    b = int(np.asarray(arrays[per_sample[0]]).shape[0])
+    pad = (-b) % n_shards
+    if pad == 0:
+        return arrays
+    idx = np.arange(b + pad) % b
+    return {k: (v if k in REPLICATED_KEYS else np.asarray(v)[idx]) for k, v in arrays.items()}
+
+
+def validated_sp_mode(cfg) -> str:
+    """``cfg.TPU.SP_ATTENTION``, checked where it is read: a typo would
+    otherwise fall through every ``== "ring"`` test to the gather layout."""
+    mode = cfg.TPU.SP_ATTENTION
+    if mode not in ("gather", "ring"):
+        raise ValueError(f"TPU.SP_ATTENTION must be 'gather' or 'ring', got {mode!r}")
+    return mode
+
+
+class _NoWriter:
+    """The metric writer of a rank other than 0: writes nothing."""
+
+    def write_scalar(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def make_task_loss(cfg) -> Callable:
@@ -104,18 +174,14 @@ def make_task_loss(cfg) -> Callable:
     raise ValueError(f"Unknown TASK.LOSS: {name}")
 
 
-def deferred(what: str, item: int) -> NotImplementedError:
-    """The error of an option the port does not have yet, naming its
-    ROADMAP.md item."""
-    return NotImplementedError(f"{what}: not ported yet, see ROADMAP.md §A item {item}")
-
-
 class TrainerBase:
     """Shared scaffolding: data, evaluator, logging, checkpoints."""
 
     def __init__(self, cfg, device="cuda"):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = maybe_initialize_distributed(device)
+        self.mesh = make_mesh(cfg.TPU.MESH_AXES, cfg.TPU.MESH_SHAPE, self.device)
+        self.sp_axis = None  # the seq axis, for a net that splits the bag over it
         self.check_cfg(cfg)
         self.start_epoch = self.epoch = 0
         self.max_epoch = cfg.OPTIM.MAX_EPOCH
@@ -146,7 +212,8 @@ class TrainerBase:
             self.all_survival = None
             self.evaluator = build_evaluator(cfg, lab2cname=self.lab2cname)
 
-        self.generator = torch.Generator(device=self.device).manual_seed(max(cfg.SEED, 0))
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            max(cfg.SEED, 0) + self.mesh.data.index)
         self.cdtype = compute_dtype_of(cfg)  # bfloat16 under TRAINER.PREC bf16/fp16/amp
         self.best_result = -np.inf
         self.writer: Optional[MetricWriter] = None
@@ -172,7 +239,60 @@ class TrainerBase:
         raise NotImplementedError
 
     def _device_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        return device_batch(batch, self.device)
+        """This rank's part of a host batch, on its device (see the module
+        docstring)."""
+        arrays = {k: v for k, v in batch.items() if k in ARRAY_KEYS}
+        if self.mesh.data.size > 1:
+            arrays = pad_ragged_dim0(arrays, self.mesh.data.size)
+        return shard_batch(arrays, self.mesh, SEQ_SHARDED_KEYS if self.sp_axis else (),
+                           REPLICATED_KEYS)
+
+    @contextlib.contextmanager
+    def _scope(self):
+        """What every forward of the trainer runs under: the precision
+        policy's matmul setting."""
+        with bf16_matmul_scope(self.cdtype):
+            yield
+
+    def check_mesh(self, model: nn.Module) -> None:
+        """Refuse what the port does not run on a mesh of more than one
+        rank, then broadcast rank 0's parameters and take the Nyström
+        normaliser over the data axis."""
+        if self.mesh.size == 1:
+            return
+        if self.sp_axis is not None and self.cdtype is not None:
+            raise deferred("TRAINER.PREC bf16 under sequence parallelism", 8)
+        if any(n.endswith("running_mean") for n, _ in model.named_buffers()):
+            raise deferred("a net with batch statistics (HFB's BatchNorm) on a mesh of "
+                           "more than one rank", 8)
+        replicate_module(model, self.mesh)
+        set_batch_axis(model, self.mesh.data)
+
+    def _grads(self, loss: torch.Tensor, params) -> List[Optional[torch.Tensor]]:
+        """The gradient of the global batch mean of ``loss`` (replicated over
+        seq, one value per data shard) with respect to ``params``: 1/world
+        of it seeded here, the gradients summed over the world."""
+        grads = torch.autograd.grad(loss / self.mesh.size if self.mesh.size > 1 else loss,
+                                    params, allow_unused=True)
+        return all_reduce_grads(grads, self.mesh.world)
+
+    def _global_mean(self, value: torch.Tensor) -> torch.Tensor:
+        """A per-data-shard scalar averaged over the data axis (no gradient)."""
+        value = value.detach()
+        if self.mesh.size == 1:
+            return value
+        return _all_reduce(self.mesh.world, value) / self.mesh.size
+
+    def _gather_rows(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        """A data-split output's rows from every rank, without the pad rows
+        beyond the host batch's ``n``."""
+        return fetch_global(t, self.mesh)[:n]
+
+    def _save(self, state: Dict, model_dir: str, epoch: int, **kwargs) -> None:
+        """``save_checkpoint`` on rank 0; every rank waits for it."""
+        if is_primary():
+            save_checkpoint(state, model_dir, epoch, **kwargs)
+        barrier()
 
     def _log_extras(self, **step_kwargs) -> List[str]:
         """Fields a subclass appends to the epoch's progress lines."""
@@ -262,11 +382,15 @@ class TrainerBase:
         read back once, after the loop."""
         self.evaluator.reset()
         pending = []
-        with torch.no_grad(), bf16_matmul_scope(self.cdtype):
+        with torch.no_grad(), self._scope():
             for batch_index, batch in enumerate(loader):
                 out = amp_call(self.model, "forward", self.cdtype,
                                self._eval_batch(batch, split, batch_index), train=False)
-                pending.append((out if isinstance(out, dict) else {"logits": out}, batch))
+                out = out if isinstance(out, dict) else {"logits": out}
+                n = len(batch["patient_id"])
+                out = {k: self._gather_rows(v, n) for k, v in out.items()
+                       if k in ("logits", "importance_path", "importance_omic")}
+                pending.append((out, batch))
         for out, batch in pending:
             self._eval_output(out, batch)
             self.process_eval_batch(out["logits"].cpu().numpy(), batch)
@@ -283,7 +407,8 @@ class TrainerBase:
         if epoch > 0:
             self.load_state_dict(state)
             self.start_epoch = epoch
-        self.writer = MetricWriter(osp.join(self.output_dir, "tensorboard"))
+        self.writer = (MetricWriter(osp.join(self.output_dir, "tensorboard")) if is_primary()
+                       else _NoWriter())
         self.time_start = time.time()
 
     def before_epoch(self):
@@ -298,10 +423,10 @@ class TrainerBase:
             curr = self.test(split="val")
             if self.cfg.TEST.FINAL_MODEL == "best_val" and curr > self.best_result:
                 self.best_result = curr
-                save_checkpoint(self.state_dict(), model_dir, self.epoch + 1, is_best=True,
-                                model_name="model-best.ckpt")
+                self._save(self.state_dict(), model_dir, self.epoch + 1, is_best=True,
+                           model_name="model-best.ckpt")
         if meet_freq or last_epoch:
-            save_checkpoint(self.state_dict(), model_dir, self.epoch + 1)
+            self._save(self.state_dict(), model_dir, self.epoch + 1)
 
     def after_train(self):
         print("Finish training")
@@ -383,9 +508,11 @@ class StandardTrainer(TrainerBase):
         """An auxiliary loss on the net's output (CMTA's alignment)."""
         return 0.0
 
-    def check_cfg(self, cfg):
-        if "seq" in cfg.TPU.MESH_AXES:
-            raise deferred("sequence parallelism (TPU.MESH_AXES with 'seq')", 8)
+    def network_seq_axis(self):
+        """The seq axis for a net with a sequence-parallel layout (TransMIL)
+        on a mesh whose seq axis has more than one rank, else None: the
+        other nets take the whole bag on every rank of a seq group."""
+        return None
 
     def param_labels(self) -> Optional[Dict[str, str]]:
         """``"train"`` or ``"frozen"`` for each parameter name of the net, or
@@ -398,8 +525,10 @@ class StandardTrainer(TrainerBase):
         return None
 
     def build_model(self):
+        self.sp_axis = self.network_seq_axis()
         self.model = self.build_network()
         self.init_weights(self.model)
+        self.check_mesh(self.model)
         print(f"# params: {count_num_param(self.model):,}")
         params = list(self.model.parameters())
         labels = self.param_labels()
@@ -416,14 +545,13 @@ class StandardTrainer(TrainerBase):
                                          grad_accum=accum)
 
     def train_step(self, db: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        with bf16_matmul_scope(self.cdtype):
+        with self._scope():
             out = amp_call(self.model, "forward", self.cdtype, db, train=True,
                            generator=self.generator)
             logits = out["logits"] if isinstance(out, dict) else out
             loss = self.task_loss(logits, db) + self.extra_loss(out, db)
-            self.optimizer.step(torch.autograd.grad(loss, self.optimizer.params,
-                                                    allow_unused=True))
-        return {"loss": loss.detach()}
+            self.optimizer.step(self._grads(loss, self.optimizer.params))
+        return {"loss": self._global_mean(loss)}
 
     def state_dict(self) -> Dict:
         return {

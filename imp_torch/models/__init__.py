@@ -102,13 +102,17 @@ def build_umeml_gan(
     head_fused: bool = True,
     stacked_pairs: bool = False,
     bag_dtype: Optional[torch.dtype] = None,
+    seq=None,
+    sp_mode: str = "gather",
 ) -> UMEML_GAN:
     """UMEML_GAN from ``cfg`` and the gene groups; with
     ``MODEL.UMEML.PROTO_INIT=plip`` its prototypes come from the cached PLIP
     prototypes (:func:`imp_torch.models.prototypes.plip_prototype_init`).
     ``head_fused``, ``stacked_pairs`` and ``bag_dtype``, the JAX module
     globals ``HEAD_FUSED``, ``STACKED_PAIRS`` and ``BAG_DTYPE``, have no cfg
-    key either (see :class:`UMEML_GAN`)."""
+    key either (see :class:`UMEML_GAN`).  ``seq`` (a
+    :class:`~imp_torch.parallel.collectives.Axis`) and ``sp_mode`` select
+    its sequence-parallel layout."""
     proto_init = None
     if cfg.MODEL.UMEML.PROTO_INIT == "plip":
         proto_init = plip_prototype_init(cfg, cfg.MODEL.UMEML.PROTOTYPES, cfg.MODEL.HIDDEN_DIM)
@@ -131,6 +135,8 @@ def build_umeml_gan(
             stacked_pairs=stacked_pairs,
             bag_dtype=bag_dtype,
             proto_init=proto_init,
+            seq=seq,
+            sp_mode=sp_mode,
         ),
         device, generator,
     )
@@ -148,13 +154,13 @@ def build_umeml_gan_plot(cfg, num_classes: int, gene_group_indexes: Sequence[Seq
 @MODEL_REGISTRY.register_as("transmil")
 def build_transmil(cfg, num_classes: int, device="cuda",
                    generator: Optional[torch.Generator] = None,
-                   pinv_mode: str = "chain") -> TransMIL_NET:
+                   pinv_mode: str = "chain", seq=None, sp_mode: str = "gather") -> TransMIL_NET:
     """TransMIL over ``DATASET.PATH.DIM`` features, its TransLayers by
-    ``TPU.ATTENTION``."""
+    ``TPU.ATTENTION`` (exact in every layout of a ``seq`` axis)."""
     return build_module(
         lambda: TransMIL_NET(num_classes, cfg.DATASET.PATH.DIM,
                              attention=resolve_attention(cfg.TPU.ATTENTION),
-                             pinv_mode=pinv_mode),
+                             pinv_mode=pinv_mode, seq=seq, sp_mode=sp_mode),
         device, generator,
     )
 

@@ -56,11 +56,12 @@ class GroupedLinear(nn.Module):
 
 class PathProtoGenerator(nn.Module):
     """Prototype refinement: c + LN(CrossAttn(c, bag, bag)), one head
-    (reference ``umeml_gan.py:65-80``), with a key mask over the bag."""
+    (reference ``umeml_gan.py:65-80``), with a key mask over the bag; with
+    a ``seq`` axis the bag is this rank's token band."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, seq=None):
         super().__init__()
-        self.cross_attn = MultiheadAttention(dim, num_heads=1)
+        self.cross_attn = MultiheadAttention(dim, num_heads=1, seq=seq)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
 
     def forward(

@@ -31,9 +31,10 @@ class ABMIL_NET(nn.Module):
 
 class TransMIL_NET(nn.Module):
     def __init__(self, num_classes: int, path_input_dim: int = 512,
-                 attention: str = "nystrom", pinv_mode: str = "chain"):
+                 attention: str = "nystrom", pinv_mode: str = "chain", seq=None,
+                 sp_mode: str = "gather"):
         super().__init__()
-        self.mil = TransMIL_MODULE(path_input_dim, attention, pinv_mode)
+        self.mil = TransMIL_MODULE(path_input_dim, attention, pinv_mode, seq, sp_mode)
         self.classifier = nn.Linear(self.mil.out_features, num_classes)
 
     def forward(self, batch: Dict[str, torch.Tensor], train: bool = False,

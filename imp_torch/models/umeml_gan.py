@@ -35,6 +35,16 @@ or ``"fused"``: the Nyström pseudo-inverse through the kernels K6/K7, see
 :func:`imp_torch.ops.attention.moore_penrose_pinv`).  ``proto_init``, JAX's
 ``proto_initializer``, fills the prototypes in place of the uniform draw
 (the cached PLIP prototypes, :mod:`imp_torch.models.prototypes`).
+
+Sequence parallelism (JAX ``sp_axis``/``sp_mode``): with a ``seq`` axis
+``batch["img"]`` and ``["img_mask"]`` are this rank's token band; the
+prototype cross-attention normalises over every rank's keys (in both
+layouts) and the modularity pair runs
+:func:`imp_torch.parallel.sequence.compute_modularity_pair_sp`
+(``sp_mode="gather"``) or ``compute_modularity_pair_ring`` (``"ring"``).
+Everything after the bag is replicated over the axis.  The bag's dropout
+draws from a generator offset by the rank's index
+(:func:`imp_torch.ops.attention.rank_generator`), where JAX folds it in.
 """
 
 from __future__ import annotations
@@ -52,10 +62,12 @@ from ..ops.attention import (
     TransLayer,
     dropout,
     init_parameters_,
+    rank_generator,
     train_generator,
 )
 from ..ops.blocks import BilinearFusion
 from ..ops.modularity import compute_modularity_pair
+from ..parallel.sequence import compute_modularity_pair_ring, compute_modularity_pair_sp
 from .layers import (
     Block,
     BottleneckAttentionBlock,
@@ -101,8 +113,13 @@ class UMEML_GAN(nn.Module):
         stacked_pairs: bool = False,
         bag_dtype: Optional[torch.dtype] = None,
         proto_init: Optional[Callable[[torch.Tensor, torch.Generator], None]] = None,
+        seq=None,
+        sp_mode: str = "gather",
     ):
         super().__init__()
+        if sp_mode not in ("gather", "ring"):
+            raise ValueError(f"sp_mode {sp_mode!r} not in ('gather', 'ring')")
+        self.seq, self.sp_mode = seq, sp_mode
         if len(gene_group_indexes) != n_proto:
             raise ValueError(
                 f"MODEL.UMEML.PROTOTYPES ({n_proto}) must equal the number of "
@@ -128,7 +145,7 @@ class UMEML_GAN(nn.Module):
 
         self.path_net = nn.Linear(feat_dim, hidden)
         self.omic_net = GroupedLinear([len(g) for g in self.gene_group_indexes], hidden)
-        self.proto_g_blocks = nn.ModuleList([PathProtoGenerator(hidden) for _ in range(2)])
+        self.proto_g_blocks = nn.ModuleList([PathProtoGenerator(hidden, seq=seq) for _ in range(2)])
         self.omic_encoder = nn.ModuleList([Block(hidden, attention, pinv_mode) for _ in range(2)])
         if stacked_pairs:
             self.pair_decoder = Stacked(lambda: TransLayer(hidden, attention, pinv_mode=pinv_mode))
@@ -212,7 +229,7 @@ class UMEML_GAN(nn.Module):
         h = self.path_net(x_path)
         if self.bag_dtype is not None:  # every bag-sized tensor downstream in it
             h = h.to(self.bag_dtype)
-        h_path_bag = dropout(F.relu(h), self.dropout_rate, g)
+        h_path_bag = dropout(F.relu(h), self.dropout_rate, rank_generator(g, self.seq))
         if mask is not None:
             h_path_bag = h_path_bag * mask[..., None]
 
@@ -390,7 +407,12 @@ class UMEML_GAN(nn.Module):
             h_omic = (1.0 - gen_ratio) * h_omic + gen_ratio * h_omic_gen
 
         out = self.head(h_path, h_omic, train=train, T=self.kd_t, generator=g)
-        if train:
+        if train and self.seq is not None:
+            pair = (compute_modularity_pair_ring if self.sp_mode == "ring"
+                    else compute_modularity_pair_sp)
+            out["modular_loss"] = pair((enc["p_proto"], h_omic), enc["h_path_bag"],
+                                       valid_local=batch.get("img_mask"), axis=self.seq)
+        elif train:
             out["modular_loss"] = compute_modularity_pair(
                 (enc["p_proto"], h_omic), enc["h_path_bag"], valid=batch.get("img_mask")
             )

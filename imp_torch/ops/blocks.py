@@ -227,12 +227,19 @@ class PPEG(nn.Module):
     grid plus the grid itself, cls token excluded (reference
     ``blocks.py:271-285``).  Each conv's kernel is ``{name}_kernel``
     ``[C, 1, k, k]`` and its bias ``{name}_bias`` ``[C]``, as in the JAX
-    tree; both draw U(±1/k)."""
+    tree; both draw U(±1/k).
+
+    With a ``seq`` axis (the ring layout), ``x`` is this rank's band of
+    grid tokens (no cls; H/sp whole grid rows, ``[B, H·W/sp, C]``); 3-row
+    halos come from the neighbouring ranks and the convs run without row
+    padding on the haloed slab, equal to the SAME convs over the grid."""
 
     KERNELS = (("proj", 7), ("proj1", 5), ("proj2", 3))
+    HALO = 3  # rows: the 7 × 7 conv's reach
 
-    def __init__(self, dim: int = 512):
+    def __init__(self, dim: int = 512, seq=None):
         super().__init__()
+        self.seq = seq
         for name, k in self.KERNELS:
             self.register_parameter(f"{name}_kernel", nn.Parameter(torch.empty(dim, 1, k, k)))
             self.register_parameter(f"{name}_bias", nn.Parameter(torch.empty(dim)))
@@ -247,17 +254,37 @@ class PPEG(nn.Module):
 
     def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:  # [B, 1 + H·W, C]
         b, _, c = x.shape
-        cls_token, feat = x[:, :1], x[:, 1:]
-        grid = feat.transpose(1, 2).reshape(b, c, H, W)
+        if self.seq is None:
+            cls_token, feat = x[:, :1], x[:, 1:]
+            grid = feat.transpose(1, 2).reshape(b, c, H, W)
+            src, rows = grid, H
+        else:
+            from ..parallel.collectives import shift
+
+            sp, r = self.seq.size, self.HALO
+            if H % sp or H // sp < r:
+                raise ValueError(f"PPEG ring layout needs grid rows divisible by the seq "
+                                 f"axis with >= {r} rows a rank (H={H}, sp={sp})")
+            rows = H // sp
+            grid = x.transpose(1, 2).reshape(b, c, rows, W)
+            # rank i-1's bottom rows above the band, rank i+1's top rows below
+            # (zeros at the ends: the SAME padding)
+            src = torch.cat([shift(grid[:, :, -r:], self.seq, 1, cyclic=False), grid,
+                             shift(grid[:, :, :r], self.seq, -1, cyclic=False)], dim=2)
         # each conv in float32 (float64 for a float64 input), returned in
         # x's dtype, as JAX computes them under bf16
         wide = torch.promote_types(x.dtype, torch.float32)
         out = grid
         for name, k in self.KERNELS:
-            out = out + F.conv2d(grid.to(wide), getattr(self, f"{name}_kernel").to(wide),
-                                 getattr(self, f"{name}_bias").to(wide), padding=k // 2,
+            if self.seq is None:
+                inp, pad = src, (k // 2, k // 2)
+            else:  # the slab rows this conv reaches, no row padding
+                inp, pad = src[:, :, self.HALO - k // 2:self.HALO + rows + k // 2], (0, k // 2)
+            out = out + F.conv2d(inp.to(wide), getattr(self, f"{name}_kernel").to(wide),
+                                 getattr(self, f"{name}_bias").to(wide), padding=pad,
                                  groups=c).to(x.dtype)
-        return torch.cat([cls_token, out.reshape(b, c, H * W).transpose(1, 2)], dim=1)
+        out = out.reshape(b, c, rows * W).transpose(1, 2)
+        return out if self.seq is not None else torch.cat([cls_token, out], dim=1)
 
 
 def square_pad(features: torch.Tensor, valid: Optional[torch.Tensor] = None):

@@ -20,6 +20,15 @@
   :func:`flash_attention_bwd_dq_reference` for K2 and
   :func:`flash_attention_bwd_dkv_reference` for K3).  The CPU tests use them
   and ``chip_smoke.py`` holds the kernels against them on the card.
+* :func:`flash_attention_partial` and :func:`flash_attention_partial_bwd`
+  — JAX's chunk forms for ring attention (``imp_tpu/ops/flash_attention.py
+  :412,460``): K1 over one key chunk, returning O normalised within the
+  chunk and the chunk's lse; K2/K3 over one chunk with the **global** lse
+  and delta, so the chunks' dq parts and each chunk's dk, dv add up to the
+  exact gradient.  A chunk with no valid key for a row gives that row an
+  lse near -1e30 forward (its merge weight underflows to 0) and, under a
+  finite global lse, P = exp(s - 1e30 - lse) = 0 backward, so dk = dv = 0
+  exactly.
 * :func:`flash_attention` — the JAX signature ``(q, k, v, mask, scale)``:
   it scales q before the kernels, as JAX does, and returns O through
   :class:`FlashAttention`, a ``torch.autograd.Function`` whose forward is K1
@@ -283,6 +292,60 @@ def flash_bwd_layout(d: int) -> dict:
     return {"tile": tile.value, "flash_bwd_dq": dq_smem.value, "flash_bwd_dkv": dkv_smem.value}
 
 
+def _mask_bias(mask: Optional[torch.Tensor], b: int, nk: int, device) -> torch.Tensor:
+    """The kernels' additive key bias of a bool mask (None: every key)."""
+    if mask is None:
+        return torch.zeros((b, nk), dtype=torch.float32, device=device)
+    return torch.where(mask, 0.0, NEG_INF).to(torch.float32).contiguous()
+
+
+def _fp32_only(mxu_precision: str) -> None:
+    # JAX's bf16 products of fp32 P have no caller outside the ring passes
+    if mxu_precision != "fp32":
+        raise ValueError(f"mxu_precision {mxu_precision!r}: only 'fp32' is ported")
+
+
+def flash_attention_partial(
+    q: torch.Tensor,  # [B, H, Nq, D] PRE-SCALED queries
+    k: torch.Tensor,  # [B, H, Nk, D] one key chunk
+    v: torch.Tensor,  # [B, H, Nk, D]
+    mask: Optional[torch.Tensor] = None,  # [B, Nk] bool, True = attend
+    mxu_precision: str = "fp32",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention of ``q`` against one key chunk, normalised within the chunk:
+    (O float32, lse float32 [B, H, Nq]) by K1 (:func:`flash_attention_fwd`),
+    to merge exactly by logsumexp across chunks.  Not differentiable (the
+    ring wraps forward and backward in one Function).  A row with no valid
+    key in the chunk gets lse ~ -1e30 and the mean of the chunk's V (JAX's
+    CPU branch gives the sum; the merge weighs either by exactly 0).
+    JAX's ``block_q``/``block_k`` have no counterpart: the kernel picks its
+    tiles."""
+    _fp32_only(mxu_precision)
+    b, nk = q.shape[0], k.shape[2]
+    return flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                               _mask_bias(mask, b, nk, q.device))
+
+
+def flash_attention_partial_bwd(
+    q: torch.Tensor,  # [B, H, Nq, D] PRE-SCALED queries
+    k: torch.Tensor,  # [B, H, Nk, D] one key chunk
+    v: torch.Tensor,  # [B, H, Nk, D]
+    mask: Optional[torch.Tensor],  # [B, Nk] bool
+    do: torch.Tensor,  # [B, H, Nq, D] output cotangent
+    lse: torch.Tensor,  # [B, H, Nq] GLOBAL row logsumexp (after the merge)
+    delta: torch.Tensor,  # [B, H, Nq] GLOBAL rowsum(dO ⊙ O)
+    mxu_precision: str = "fp32",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """This chunk's share of the backward, float32 (dq part, dk, dv), by K2
+    and K3 (:func:`flash_attention_bwd`): with the global statistics,
+    P = exp(s - lse) is the true attention restricted to these keys."""
+    _fp32_only(mxu_precision)
+    b, nk = q.shape[0], k.shape[2]
+    return flash_attention_bwd(
+        q.contiguous(), k.contiguous(), v.contiguous(), _mask_bias(mask, b, nk, q.device),
+        do.to(torch.float32).contiguous(), lse.contiguous(), delta.contiguous())
+
+
 class FlashAttention(torch.autograd.Function):
     """O = attention(q, k, v, bias) by K1; its gradient by K2 and K3.  The
     bias row carries no gradient (the JAX package returns zeros for it).
@@ -321,8 +384,5 @@ def flash_attention(
     if scale is None:
         scale = d**-0.5
     q = (q * scale).contiguous()
-    if mask is None:
-        bias = torch.zeros((b, nk), dtype=torch.float32, device=q.device)
-    else:
-        bias = torch.where(mask, 0.0, NEG_INF).to(torch.float32)
-    return FlashAttention.apply(q, k.contiguous(), v.contiguous(), bias.contiguous())
+    return FlashAttention.apply(q, k.contiguous(), v.contiguous(),
+                                _mask_bias(mask, b, nk, q.device))

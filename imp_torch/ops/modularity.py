@@ -64,22 +64,60 @@ def _valid_lengths(norm_x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _adjacency_rows(norm_x: torch.Tensor, r0: int, r1: int) -> torch.Tensor:
-    """A[:, r0:r1, :] = relu(x̂_I x̂ᵀ) with a zero diagonal: [B, R, N]."""
-    a = torch.relu(norm_x[:, r0:r1] @ norm_x.transpose(1, 2))
-    idx = torch.arange(r0, r1, device=norm_x.device)
-    a[:, idx - r0, idx] = 0.0
-    return a
+def adjacency(x_rows: torch.Tensor, x_cols: torch.Tensor, r0: int = 0, c0: int = 0) -> torch.Tensor:
+    """relu(x̂_I x̂_Jᵀ) for rows starting at global index ``r0`` and columns
+    at ``c0``, with a zero diagonal: [B, R, C]."""
+    a = torch.relu(x_rows @ x_cols.transpose(1, 2))
+    ridx = torch.arange(r0, r0 + x_rows.shape[1], device=a.device)
+    cidx = torch.arange(c0, c0 + x_cols.shape[1], device=a.device)
+    return a * (ridx[:, None] != cidx[None, :])
+
+
+def block_degrees(x_rows: torch.Tensor, x_cols: torch.Tensor, r0: int = 0, c0: int = 0) -> torch.Tensor:
+    """Each row's degree over the columns ``x_cols`` (global indices as in
+    :func:`adjacency`), swept in row blocks: [B, R]."""
+    return torch.cat([adjacency(x_rows[:, i:i + _BLOCK], x_cols, r0 + i, c0).sum(dim=2)
+                      for i in range(0, x_rows.shape[1], _BLOCK)], dim=1)
+
+
+def combined_sweep(x_rows, x_cols, deg_rows, deg_cols, inv_e, c_rows, c_cols, temp: float,
+                   r0: int = 0, c0: int = 0):
+    """The combined pass of the rows ``x_rows`` against the columns
+    ``x_cols`` (global indices as in :func:`adjacency`), swept in row
+    blocks: per prototype set the partial s1 and q [B] and the rows' dC
+    [B, P, R] (the JAX ``main_step`` body)."""
+    b, nr = x_rows.shape[:2]
+    inv_temp = 1.0 / temp
+    ie = inv_e[:, None, None]
+    s1 = [x_rows.new_zeros(b) for _ in c_rows]
+    q = [x_rows.new_zeros(b) for _ in c_rows]
+    dcs = [torch.zeros_like(C) for C in c_rows]
+    for i in range(0, nr, _BLOCK):
+        j = min(i + _BLOCK, nr)
+        a = adjacency(x_rows[:, i:j], x_cols, r0 + i, c0)
+        dd = deg_rows[:, i:j, None] * deg_cols[:, None, :]
+        a_m_dd = (a - dd * ie) * ie
+        for k, (cr, cc) in enumerate(zip(c_rows, c_cols)):
+            # running max over prototypes of C[p,I] C[p,J]; the first max wins
+            best = cr[:, 0, i:j, None] * cc[:, 0, None, :]
+            best_p = torch.zeros_like(best, dtype=torch.int64)
+            for p in range(1, cr.shape[1]):
+                term = cr[:, p, i:j, None] * cc[:, p, None, :]
+                take = term > best
+                best = torch.where(take, term, best)
+                best_p = torch.where(take, p, best_p)
+            delta = torch.tanh(best * inv_temp)
+            s1[k] = s1[k] + (a * delta).sum(dim=(1, 2))
+            q[k] = q[k] + (delta * dd).sum(dim=(1, 2))
+            w = a_m_dd * ((1.0 - delta * delta) * inv_temp)
+            for p in range(cr.shape[1]):
+                dcs[k][:, p, i:j] = 2.0 * ((w * (best_p == p)) @ cc[:, p, :, None])[..., 0]
+    return s1, q, dcs
 
 
 def degree_reference(norm_x: torch.Tensor) -> torch.Tensor:
     """Plain version of K4: deg [B, N]."""
-    n = norm_x.shape[1]
-    return torch.cat(
-        [_adjacency_rows(norm_x, r0, min(r0 + _BLOCK, n)).sum(dim=2)
-         for r0 in range(0, n, _BLOCK)],
-        dim=1,
-    )
+    return block_degrees(norm_x, norm_x)
 
 
 def combined_reference(
@@ -90,32 +128,7 @@ def combined_reference(
     temp: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
     """Plain version of K5: (s1 [K, B], q [K, B], dC per set [B, P, N])."""
-    b, n, _ = norm_x.shape
-    inv_temp = 1.0 / temp
-    ie = inv_e[:, None, None]
-    s1 = [norm_x.new_zeros(b) for _ in Cs]
-    q = [norm_x.new_zeros(b) for _ in Cs]
-    dcs = [torch.zeros_like(C) for C in Cs]
-    for r0 in range(0, n, _BLOCK):
-        r1 = min(r0 + _BLOCK, n)
-        a = _adjacency_rows(norm_x, r0, r1)
-        dd = deg[:, r0:r1, None] * deg[:, None, :]
-        a_m_dd = (a - dd * ie) * ie
-        for k, C in enumerate(Cs):
-            # running max over prototypes of C[p,I] C[p,J]; the first max wins
-            best = C[:, 0, r0:r1, None] * C[:, 0, None, :]
-            best_p = torch.zeros_like(best, dtype=torch.int64)
-            for p in range(1, C.shape[1]):
-                term = C[:, p, r0:r1, None] * C[:, p, None, :]
-                take = term > best
-                best = torch.where(take, term, best)
-                best_p = torch.where(take, p, best_p)
-            delta = torch.tanh(best * inv_temp)
-            s1[k] = s1[k] + (a * delta).sum(dim=(1, 2))
-            q[k] = q[k] + (delta * dd).sum(dim=(1, 2))
-            w = a_m_dd * ((1.0 - delta * delta) * inv_temp)
-            for p in range(C.shape[1]):
-                dcs[k][:, p, r0:r1] = 2.0 * ((w * (best_p == p)) @ C[:, p, :, None])[..., 0]
+    s1, q, dcs = combined_sweep(norm_x, norm_x, deg, deg, inv_e, Cs, Cs, temp)
     return torch.stack(s1), torch.stack(q), dcs
 
 

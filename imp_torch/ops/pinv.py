@@ -43,15 +43,20 @@ from typing import Tuple
 
 import torch
 
+from ..parallel.collectives import pmax_select
+
 #: the matrix sizes the kernels are built for
 PINV_SIZES = (128, 256, 384, 512)
 
 
-def norm_scalar(x: torch.Tensor) -> torch.Tensor:
+def norm_scalar(x: torch.Tensor, batch_axis=None) -> torch.Tensor:
     """The reference's global normaliser: max over every matrix of the
-    absolute column sums times the same of the row sums."""
+    absolute column sums times the same of the row sums.  With a
+    ``batch_axis`` (the ``data`` axis of a mesh) the maxima span every
+    rank's part of the batch, so each part is normalised as the whole batch
+    is on one device."""
     abs_x = x.abs()
-    return abs_x.sum(dim=-1).max() * abs_x.sum(dim=-2).max()
+    return pmax_select(abs_x.sum(dim=-1), batch_axis) * pmax_select(abs_x.sum(dim=-2), batch_axis)
 
 
 def _iterate(x, z, eye):
@@ -244,10 +249,11 @@ class PinvNewtonSchulz(torch.autograd.Function):
         return dx, dcp.sum().reshape(c.shape), None
 
 
-def pinv_newton_schulz(x: torch.Tensor, iters: int = 6) -> torch.Tensor:
+def pinv_newton_schulz(x: torch.Tensor, iters: int = 6, batch_axis=None) -> torch.Tensor:
     """pinv(x) for x ``[..., m, m]`` float32 through :class:`PinvNewtonSchulz`
-    (the counterpart of JAX's ``pinv_newton_schulz``); differentiable in x."""
+    (the counterpart of JAX's ``pinv_newton_schulz``); differentiable in x.
+    ``batch_axis``: see :func:`norm_scalar`."""
     lead, m = x.shape[:-2], x.shape[-1]
     flat = x.reshape(-1, m, m).contiguous()
-    out = PinvNewtonSchulz.apply(flat, norm_scalar(flat), iters)
+    out = PinvNewtonSchulz.apply(flat, norm_scalar(flat, batch_axis), iters)
     return out.reshape(*lead, m, m)

@@ -31,6 +31,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..errors import deferred
+
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 
@@ -180,7 +182,6 @@ def write_features(out_path: str, key: str, feats: np.ndarray) -> None:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    from ..engine.trainer import deferred
     from ..models.clip import CLIP_CONFIGS
 
     ap = argparse.ArgumentParser()

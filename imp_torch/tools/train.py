@@ -6,6 +6,16 @@
         --output-dir output/umeml_gan_s1 [--device cuda] [KEY VALUE ...]
 
 ``--trainer`` is MBTRAIN, TransMIL or ABMIL (each with its config file).
+
+On several cards, one process each, under ``torchrun``:
+
+    torchrun --standalone --nproc-per-node 2 -m imp_torch.tools.train ... \
+        TPU.MESH_AXES "('data','seq')" TPU.MESH_SHAPE "(1,2)" \
+        TPU.SP_ATTENTION ring
+
+(``(2,1)`` splits the batch instead; ``gather`` is the other layout).  One
+process is the world of one.  Rank 0 writes the log file, the metric lines
+and the checkpoints.
 """
 
 from __future__ import annotations
@@ -15,7 +25,10 @@ import contextlib
 import sys
 from typing import Iterator, Optional, Sequence
 
+import torch.distributed as dist
+
 from ..config import clean_cfg, get_cfg_default
+from ..parallel import is_primary, maybe_initialize_distributed
 from ..utils.logger import setup_logger
 from ..utils.tools import collect_env_info, set_random_seed
 
@@ -58,7 +71,7 @@ def session(args) -> Iterator:
     if cfg.SEED >= 0:
         print(f"Setting fixed seed: {cfg.SEED}")
         set_random_seed(cfg.SEED)
-    tee = setup_logger(cfg.OUTPUT_DIR)
+    tee = setup_logger(cfg.OUTPUT_DIR) if is_primary() else None
     try:
         if cfg.VERBOSE:
             print("*** Config ***")
@@ -73,10 +86,20 @@ def session(args) -> Iterator:
 
 
 def main(args) -> Optional[float]:
+    owns_group = not dist.is_initialized()
+    device = maybe_initialize_distributed(args.device)  # torchrun's ranks, else one
+    try:
+        return _run(args, device)
+    finally:
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, device) -> Optional[float]:
     with session(args) as cfg:
         from ..engine import build_trainer
 
-        trainer = build_trainer(cfg, device=args.device)
+        trainer = build_trainer(cfg, device=device)
         if args.eval_only:
             trainer.load_model(args.model_dir or cfg.OUTPUT_DIR, epoch=args.load_epoch)
             return trainer.test(

@@ -159,7 +159,8 @@ def test_fused_mode_gate(monkeypatch):
     calls = []
     real = tattn.pinv_newton_schulz
     monkeypatch.setattr(tattn, "pinv_newton_schulz",
-                        lambda x, iters: calls.append(tuple(x.shape)) or real(x, iters))
+                        lambda x, iters, batch_axis: calls.append(tuple(x.shape))
+                        or real(x, iters, batch_axis))
     before = kernels.launches()
     for m in (64, 640):
         x = torch.from_numpy(_attn_like(2, m))
@@ -221,7 +222,8 @@ def test_nystrom_layers_in_fused_mode_match_jax(layer, n, masked, monkeypatch):
     calls = []
     real = tattn.pinv_newton_schulz
     monkeypatch.setattr(tattn, "pinv_newton_schulz",
-                        lambda a, iters: calls.append(tuple(a.shape)) or real(a, iters))
+                        lambda a, iters, batch_axis: calls.append(tuple(a.shape))
+                        or real(a, iters, batch_axis))
     tx = torch.from_numpy(x).requires_grad_()
     out = tmod(tx, mask=None if mask is None else torch.from_numpy(mask))
     assert calls == [(b, 8, dim // 2, dim // 2)]  # one [B, H, m, m] pinv, fused
