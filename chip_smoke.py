@@ -194,14 +194,45 @@ Phases, each printing one JSON line (the run fails on the first error):
    :func:`sp_layout_check` (the mesh within STEP_TOL of the same layout
    on one rank, that layout's float64 replay equal to the one-rank
    model's, :func:`float64_rule` on the layout, the argmax flips
-   counted); the launches per rank, each rank's peak memory and step
+   counted); UMEML_GAN under flash at ``TRAINER.PREC bf16``, (1, 2)
+   gather and ring, and TransMIL at ``amp``, (1, 2) ring, run K1-K3's bf16
+   entries on every hop and on the gathered bag: the loss and every
+   gradient within phase 22's bf16 gate of the one-rank bf16 step (the
+   same trainer's fp32 step its reference; a UMEML_GAN miss goes to
+   :func:`sp_layout_check_bf16`); HFB at (2, 1), batch 4 a rank, its
+   BatchNorm taking the global batch's moments over ``data``: every
+   gradient by :func:`float64_rule` against the one-rank step at batch 8,
+   the running mean and variance and rank 0's eval logits within STEP_TOL,
+   rank 0's state reloading strictly into the one-rank model; the launches
+   per rank (the bf16 entries' too), each rank's peak memory and step
    time, and the plain sp modularity passes beside K4+K5.
-Phases 27 and 28 run after phase 25.  ``python3 chip_smoke.py --sp-only``
-on a host of two cards or more (four H100s joined by NVLink) builds the kernels
-and runs ``train_sp`` over NCCL, then ``train_sp_cli``: ``torchrun
---standalone --nproc-per-node <cards>`` of the train CLI for one epoch, one card a rank
-(TransMIL at (1, cards) ring, MBTRAIN at (cards / 2, 2) gather; each rank
-runs this script with ``--rank-cli``, which serves the seeded bags).
+29. ``kernel_flash_partial_bf16`` — phase 27 with q, k and v in bf16: K1-K3's
+   bf16 entries per chunk (4 launches of each) against one bf16 call and
+   the plain version on the same operands, within KERNEL_TOL; dk = dv = 0
+   exactly on the empty chunk; per-hop times beside one call's.
+30. ``clip_tp_pp`` — the ViT-B/16 tower at full width split over two
+   ranks (NCCL on two cards, else both on card 0 over gloo): tensor
+   parallel at tp = 2 (``imp_torch.parallel.tensor``) and pipeline parallel
+   at pp = 2 with 4 microbatches (``imp_torch.parallel.pipeline``), in fp32
+   and bf16, through ``clip_feature.encode_slide`` on seeded uint8 patches
+   at batch 32: fp32 features within CLIP_TOL of the one-rank tower's and 2
+   images of their float64 CPU replay, bf16 cosine to fp32 at least
+   CLIP_BF16_COS; images/s, each rank's block-weight bytes and peak memory
+   beside the one-rank tower's.
+Phases 27, 29, 28 and 30 run after phase 25, in that order.  ``python3
+chip_smoke.py --sp-only`` on a host of two cards or more (four H100s joined
+by NVLink) builds the kernels and runs ``train_sp`` and ``clip_tp_pp`` over
+NCCL, then ``train_sp_cli``: ``torchrun --standalone --nproc-per-node
+<cards>`` of the train CLI for one epoch, one card a rank (TransMIL at (1,
+cards) ring, MBTRAIN at (cards / 2, 2) gather, and MBTRAIN under flash at
+``TRAINER.PREC bf16``, (cards / 2, 2) ring; each rank runs this script with
+``--rank-cli``, which serves the seeded bags), then ``clip_tools``: the
+same torchrun of ``imp_torch.tools.clip_feature --tp <cards>`` and ``--pp
+<cards>`` and of ``imp_torch.tools.clip_feature_dp`` on synthetic patches
+(each rank runs this script with ``--rank-tool``, which reads the patches
+with numpy and, where h5py is absent, writes the features with ``np.save``
+and says so), each slide's features within CLIP_TOL of the one-card
+tool's.
 Phases 22-25 run after 16 and before the CLIP phases (17-20); phase 21
 runs last, where the profiler loses the most records, then phase 26.
 ``train_step`` (phase 6) also times UMEML_GAN's batch-8 step with the fused
@@ -216,7 +247,9 @@ main path: serving for K1, TransMIL training for K2/K3, MBTRAIN for
 K4/K5 (with ``plip_launches``, their launches in ``plip_umeml_gan``), UMEML
 training for K6/K7; K1-K3 each with a ``partial`` object: its launches and
 times under the ring's per-chunk contract (phase 27) and its launches per
-rank in train_sp's TransMIL steps; each with a ``cmta`` object: its launches
+rank in train_sp's TransMIL steps, and a ``partial_bf16`` object: the same
+for its bf16 entry (phase 29) with its launches per rank in train_sp's bf16
+steps; each with a ``cmta`` object: its launches
 in CMTA's epoch under flash (K1-K3) or fused (K6/K7) and its times at CMTA's
 shape, K1-K3 at (1, 8, 10 001, 32), K6/K7 at (8, 128); K1-K3 each with a ``bf16`` object: its bf16 entry's launches in
 ``train_bf16`` and its times at TransMIL's bag; K2 and K3 each with its own device time
@@ -436,18 +469,35 @@ TRACE_PRIMERS = 64
 PRIMER_KERNEL = "spin_kernel"
 #: (primers launched, primer records in the trace) of every traced window
 TRACE_SESSIONS: list = []
+#: the loss can also strike past the primers (a window whose primers
+#: survived held 4 launches of ``dkv_kernel`` in 5 calls): such a window is
+#: traced again, at most this many times
+TRACE_RETRIES = 4
+#: {kernel: (records, calls)} of every window traced again for such a loss
+TRACE_SHORT: list = []
 
 
-def traced(fn, iters: int):
+def short_counts(prof, kernel_names, iters: int) -> dict:
+    """{kernel: (records, calls)} of each of ``kernel_names`` whose records
+    in the trace ``prof`` are no multiple of ``iters`` (each call launches
+    it as often): the trace lost some."""
+    rows = device_rows(prof.key_averages())
+    counts = {k: sum(e.count for e in rows if k in e.key) for k in kernel_names}
+    return {k: (n, iters) for k, n in counts.items() if n % iters}
+
+
+def traced(fn, iters: int, whole=()):
     """The ``torch.profiler`` session of ``iters`` calls of ``fn`` (after
     one untimed call), behind ``TRACE_PRIMERS`` primer kernels; None where
-    CUPTI refuses to trace the card."""
+    CUPTI refuses to trace the card.  A session in which a kernel named in
+    ``whole`` lost records is traced again, at most ``TRACE_RETRIES``
+    times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    primers = TRACE_PRIMERS
+    primers, retries = TRACE_PRIMERS, 0
     while True:
         try:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -462,18 +512,26 @@ def traced(fn, iters: int):
             return None
         seen = sum(e.count for e in prof.key_averages() if PRIMER_KERNEL in e.key)
         TRACE_SESSIONS.append((primers, seen))
-        if seen:  # the loss ended among the primers: fn's records are whole
+        if not seen:  # the loss may reach into fn's records: more primers
+            require(primers < 64 * TRACE_PRIMERS,
+                    f"the trace lost all of {primers} primer kernels: {TRACE_SESSIONS[-4:]}")
+            primers *= 4
+            continue
+        short = short_counts(prof, whole, iters)
+        if not short:
             return prof
-        require(primers < 64 * TRACE_PRIMERS,
-                f"the trace lost all of {primers} primer kernels: {TRACE_SESSIONS[-4:]}")
-        primers *= 4
+        TRACE_SHORT.append(short)
+        require(retries < TRACE_RETRIES,
+                f"{retries + 1} traces in a row lost records of a timed kernel: "
+                f"{TRACE_SHORT[-retries - 1:]}")
+        retries += 1
 
 
-def profiled(fn, iters: int):
+def profiled(fn, iters: int, whole=()):
     """The key averages of :func:`traced`; None where CUPTI refuses.  Fails
     where the trace holds no device row of ``fn``: every traced ``fn`` runs
     device work."""
-    prof = traced(fn, iters)
+    prof = traced(fn, iters, whole)
     if prof is None:
         return None
     events = prof.key_averages()
@@ -497,8 +555,9 @@ def device_ms_by(fn, kernel_names, iters: int = 20) -> dict:
     """Mean device time per call of ``fn`` of each CUDA kernel whose name
     holds one of ``kernel_names``; None where the trace holds no device time
     for it.  Fails where a kernel's launches in the trace are no multiple
-    of ``iters`` (each call launches it as often): the trace lost some."""
-    rows = device_rows(profiled(fn, iters))
+    of ``iters`` (each call launches it as often) in every one of
+    :func:`traced`'s attempts: the trace lost some."""
+    rows = device_rows(profiled(fn, iters, kernel_names))
     totals = {}
     for k in kernel_names:
         mine = [e for e in rows if k in e.key]
@@ -1719,7 +1778,7 @@ def time_step(step, kernel_names, timed: int = STEP_TIMED, traced: int = 3):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    events = profiled(step, traced)
+    events = profiled(step, traced, kernel_names)
     rows = device_rows(events)
     for k in kernel_names:  # each step launches a kernel as often: none lost
         count = sum(e.count for e in rows if k in e.key)
@@ -3268,10 +3327,12 @@ def phase_flash_bf16(card: str, build_report: dict):
 
 def phase_trace_sessions(card: str):
     """What the traced windows of the run lost: per window the primer
-    records missing from its trace (:func:`traced`)."""
+    records missing from its trace, and the windows traced again because
+    they lost records of a timed kernel past the primers (:func:`traced`)."""
     lost = [launched - seen for launched, seen in TRACE_SESSIONS]
     row = {"phase": "trace_sessions", "card": card, "sessions": len(lost),
            "primers": TRACE_PRIMERS, "retraced": sum(1 for _, seen in TRACE_SESSIONS if not seen),
+           "retraced_for_lost_launches": len(TRACE_SHORT), "lost_launches": TRACE_SHORT[-5:],
            "lost_first": lost[:5], "lost_last": lost[-5:], "lost_max": max(lost, default=None),
            "sessions_with_loss": sum(1 for n in lost if n)}
     emit(row)
@@ -3737,7 +3798,7 @@ PARTIAL_SHAPE = ("transmil_n10001_d64", 1, 8, 10001, 64, 7314)
 PARTIAL_CHUNKS = 4
 
 
-def phase_flash_partial(card: str):
+def phase_flash_partial(card: str, prec: str = "fp32"):
     """K1-K3 under the ring's per-chunk contract
     (``flash_attention_partial``/``_bwd``, one launch each per hop): K1
     over each of 4 key chunks merged by logsumexp (``ring_hop_forward``)
@@ -3745,7 +3806,10 @@ def phase_flash_partial(card: str):
     global lse and delta (``ring_hop_backward``: dq summed, dk and dv
     concatenated) against one K2/K3 call and the plain backward; dk = dv =
     0 exactly on the chunk without a valid key; 4 launches of each; the
-    per-hop time beside the single call's."""
+    per-hop time beside the single call's.  ``prec="bf16"``: q, k and v in
+    bf16 (``TRAINER.PREC bf16`` under sequence parallelism), through the
+    bf16 entries, against one bf16 call and the plain version on the same
+    bf16 operands (which widens them); dO, lse, delta and the merge fp32."""
     import torch
 
     from imp_torch import kernels
@@ -3760,6 +3824,9 @@ def phase_flash_partial(card: str):
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     q, k, v, do = (torch.randn(b, h, n, d, device=DEVICE, generator=g) for _ in range(4))
     q = q * d**-0.5
+    if prec == "bf16":
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    entries = {kn: BF16_ENTRIES[kn] if prec == "bf16" else kn for kn in FLASH_PRODUCTS}
     valid = key_valid(n, n_valid, DEVICE)[None].expand(b, n)
     bias = torch.where(valid, 0.0, NEG_INF).contiguous()
     cuts = torch.tensor_split(torch.arange(n), PARTIAL_CHUNKS)
@@ -3789,7 +3856,7 @@ def phase_flash_partial(card: str):
         delta = (do * o).sum(-1)
         dq, dks, dvs = ring_backward(lse, delta)
         torch.cuda.synchronize()
-        launches = kernels.launches()
+        launches = {kn: kernels.launches().get(entries[kn], 0) for kn in FLASH_PRODUCTS}
         o1, lse1 = flash_attention_fwd(q, k, v, bias)
         o_ref, lse_ref = flash_attention_reference(q, k, v, bias)
         one = flash_attention_bwd(q, k, v, bias, do, lse1, (do * o1).sum(-1))
@@ -3827,7 +3894,8 @@ def phase_flash_partial(card: str):
         }
     kernels.reset_launches()  # the comparison and timing launches do not count
     row = {
-        "phase": "kernel_flash_partial", "card": card, "shape": name, "B": b, "H": h, "N": n,
+        "phase": "kernel_flash_partial" + ("_bf16" if prec == "bf16" else ""), "card": card,
+        "prec": prec, "entries": entries, "shape": name, "B": b, "H": h, "N": n,
         "d": d, "valid": n_valid, "chunks": [z - a for a, z in spans],
         "chunk_valid_keys": [int(c[2].sum()) for c in chunks], **errs, "max_abs_err": abs_err,
         "tol_rel": KERNEL_TOL, "finite": finite, "empty_chunk_dk_dv_zero": empty_chunk_zero,
@@ -3836,58 +3904,95 @@ def phase_flash_partial(card: str):
     emit(row)
     require(finite and empty_chunk_zero and max(errs.values()) <= KERNEL_TOL,
             f"the ring's chunk forms disagree: {row}")
-    require(all(launches.get(kn) == PARTIAL_CHUNKS for kn in FLASH_PRODUCTS),
-            f"K1-K3 must launch once per hop: {launches}")
+    require(all(launches[kn] == PARTIAL_CHUNKS for kn in FLASH_PRODUCTS),
+            f"K1-K3 ({prec} entries) must launch once per hop: {launches}")
     return row
 
 
 SP_BACKEND_NOTE = {"nccl": "NCCL, one card per rank",
                    "gloo": "gloo on one shared card, every collective staged through host memory"}
 SP_STEP_TIMED = 5
-#: the runs of train_sp: (name, trainer, mesh shape (data, seq), TPU.SP_ATTENTION)
+#: the runs of train_sp: (name, trainer, mesh shape (data, seq),
+#: TPU.SP_ATTENTION, TRAINER.PREC)
 SP_RUNS = (
-    ("transmil_gather", "TransMIL", (1, 2), "gather"),
-    ("transmil_ring", "TransMIL", (1, 2), "ring"),
-    ("umeml_gan_gather", "MBTRAIN", (1, 2), "gather"),
-    ("umeml_gan_ring", "MBTRAIN", (1, 2), "ring"),
-    ("umeml_gan_data", "MBTRAIN", (2, 1), "gather"),
+    ("transmil_gather", "TransMIL", (1, 2), "gather", "fp32"),
+    ("transmil_ring", "TransMIL", (1, 2), "ring", "fp32"),
+    ("umeml_gan_gather", "MBTRAIN", (1, 2), "gather", "fp32"),
+    ("umeml_gan_ring", "MBTRAIN", (1, 2), "ring", "fp32"),
+    ("umeml_gan_data", "MBTRAIN", (2, 1), "gather", "fp32"),
+    ("umeml_gan_bf16_gather", "MBTRAIN", (1, 2), "gather", "bf16"),
+    ("umeml_gan_bf16_ring", "MBTRAIN", (1, 2), "ring", "bf16"),
+    ("transmil_amp_ring", "TransMIL", (1, 2), "ring", "amp"),
+    ("hfb_data", "HFB", (2, 1), "gather", "fp32"),
 )
+HFB_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "Survival",
+                        "HFB.yaml")
+HFB_BATCH = 8  # the global batch of train_sp's HFB step: 4 slides a rank at (2, 1)
 
 
-def sp_trainer(root: str, out: str, trainer: str, mesh_shape, mode: str):
+def sp_attention(trainer: str, prec: str) -> str:
+    """TPU.ATTENTION of a train_sp run: flash for TransMIL and for
+    UMEML_GAN under bf16 (K1-K3's bf16 entries), else the default."""
+    return "flash" if trainer == "TransMIL" or prec != "fp32" else "auto"
+
+
+def zero_dropout(model) -> None:
+    """Every dropout rate of ``model`` that MODEL.DROPOUT does not set (the
+    attention's, HFB's gated pools and factorised pooling) to 0."""
+    from imp_torch.ops.attention import ExactSelfAttention, NystromAttention
+
+    for m in model.modules():
+        if isinstance(m, (NystromAttention, ExactSelfAttention)):
+            m.dropout = 0.0
+        for rate in ("rate", "fac_drop"):
+            if isinstance(getattr(m, rate, None), float):
+                setattr(m, rate, 0.0)
+
+
+def sp_trainer(root: str, out: str, trainer: str, mesh_shape, mode: str, prec: str = "fp32"):
     """A trainer of train_sp on this process's mesh, at dropout 0 (the mesh
     step and the one-rank step must draw alike): TransMIL under flash at
-    TransMIL.yaml's 10 000-patch bag, or MBTRAIN on UMEML_GAN.yaml's values
-    at batch 8 (``UMEML_GAN_THROUGHPUT.yaml``); with its first train batch
-    on the card."""
+    TransMIL.yaml's 10 000-patch bag, MBTRAIN on UMEML_GAN.yaml's values
+    at batch 8 (``UMEML_GAN_THROUGHPUT.yaml``), or HFB (HFB.yaml) at a
+    global batch of HFB_BATCH; with its first train batch on the card."""
     from imp_torch.engine import build_trainer
-    from imp_torch.ops.attention import ExactSelfAttention, NystromAttention
 
     mesh = {"TPU.MESH_AXES": ("data", "seq"), "TPU.MESH_SHAPE": tuple(mesh_shape),
             "TPU.SP_ATTENTION": mode, "DATASET.ROOT": root, "OUTPUT_DIR": out,
-            "VERBOSE": False, "SEED": 1, "DATASET.FOLD": 1, "MODEL.DROPOUT": 0.0}
+            "VERBOSE": False, "SEED": 1, "DATASET.FOLD": 1, "MODEL.DROPOUT": 0.0,
+            "TRAINER.PREC": prec, "TPU.ATTENTION": sp_attention(trainer, prec)}
     if trainer == "TransMIL":
         cfg = transmil_cfg(**{"TRAINER.NAME": "TransMIL", **mesh})
+    elif trainer == "HFB":
+        cfg = yaml_cfg(HFB_YAML, **{"TRAINER.NAME": "HFB", **mesh,
+                                    "DATALOADER.TRAIN.BATCH_SIZE": HFB_BATCH,
+                                    "DATALOADER.TEST.BATCH_SIZE": HFB_BATCH})
     else:
-        cfg = flagship_cfg("auto", **{"TRAINER.NAME": "MBTRAIN", **THROUGHPUT, **mesh})
+        cfg = flagship_cfg(**{"TRAINER.NAME": "MBTRAIN", **THROUGHPUT, **mesh})
     with seeded_bags():
         tr = build_trainer(cfg, device=DEVICE)
         batch = next(iter(tr.train_loader))
-    for m in tr.model.modules():
-        if isinstance(m, (NystromAttention, ExactSelfAttention)):
-            m.dropout = 0.0
+        test_batch = next(iter(tr.test_loader))
+    zero_dropout(tr.model)
+    # HFB's eval logits after its step: this rank's part of a test batch
+    tr.test_db, tr.test_rows = tr._device_batch(test_batch), len(test_batch["patient_id"])
     return tr, tr._device_batch(batch)
 
 
 def sp_loss(tr, model, db):
-    """One train forward's loss (task + modularity + distillation for
-    UMEML_GAN; the task loss for TransMIL)."""
+    """One train forward's loss under the trainer's precision policy (task
+    + modularity + distillation for UMEML_GAN; task and extra loss for the
+    others)."""
     import torch
 
-    out = model(db, train=True, generator=torch.Generator(device=db["img"].device).manual_seed(0))
-    if isinstance(out, dict):
+    from imp_torch.engine.precision import amp_call
+
+    out = amp_call(model, "forward", tr.cdtype, db, train=True,
+                   generator=torch.Generator(device=db["img"].device).manual_seed(0))
+    if isinstance(out, dict) and "modular_loss" in out:
         return tr.task_loss(out["logits"], db) + out["modular_loss"] + out["loss_kd"]
-    return tr.task_loss(out, db)
+    logits = out["logits"] if isinstance(out, dict) else out
+    return tr.task_loss(logits, db) + tr.extra_loss(out, db)
 
 
 def sp_loss_and_grads(tr, db):
@@ -3905,6 +4010,17 @@ def sp_loss_and_grads(tr, db):
                                            for gr, p in zip(grads, params)]
 
 
+def eval_logits(tr, db):
+    """The eval logits of the test batch ``db`` (every data rank's rows,
+    without the pad rows)."""
+    import torch
+
+    with torch.no_grad():
+        out = tr.model(db)
+    out = out["logits"] if isinstance(out, dict) else out
+    return tr._gather_rows(out, tr.test_rows)
+
+
 def sp_rank(rank: int, root: str, out: str):
     """One rank of train_sp: for each run of ``SP_RUNS``, one step's loss
     and gradients (rank 0 returns them), then the launches of one train
@@ -3918,8 +4034,8 @@ def sp_rank(rank: int, root: str, out: str):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     res = {}
-    for run, trainer, shape, mode in SP_RUNS:
-        tr, db = sp_trainer(root, os.path.join(out, f"{run}_{rank}"), trainer, shape, mode)
+    for run, trainer, shape, mode, prec in SP_RUNS:
+        tr, db = sp_trainer(root, os.path.join(out, f"{run}_{rank}"), trainer, shape, mode, prec)
         loss, names, grads = sp_loss_and_grads(tr, db)
         kw = {"train_gan": True} if trainer == "MBTRAIN" else {}
         torch.cuda.synchronize()
@@ -3931,6 +4047,12 @@ def sp_rank(rank: int, root: str, out: str):
                "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
                "batch_rows": int(db["img"].shape[0]), "bag_tokens": int(db["img"].shape[1]),
                "backend": tr.mesh.world.backend}
+        if trainer == "HFB":  # the state after one step, and its eval logits (every rank gathers)
+            logits = eval_logits(tr, tr.test_db).cpu()
+            if rank == 0:
+                row.update(state={k: v.detach().to("cpu", copy=True)
+                                  for k, v in tr.model.state_dict().items()},
+                           eval_logits=logits)
         times = []
         for _ in range(SP_STEP_TIMED):
             t0 = time.perf_counter()
@@ -4110,24 +4232,161 @@ def sp_layout_check(ref: dict, mesh_grads, mode: str) -> dict:
     return check
 
 
+def sp_layout_check_bf16(ref: dict, mesh_grads, mode: str) -> dict:
+    """For a bf16 UMEML_GAN mesh step that misses the bf16 gate against the
+    one-rank bf16 step: the same sequence-parallel code on an axis of one
+    rank (:func:`sp_one_rank_layout`) under the same precision policy, with
+    fixed gates: (1) the mesh within BF16_GATE of that layout run (what the
+    collectives change); (2) the layout at fp32 within F32_STEP_RESOLUTION
+    of the one-rank fp32 step (the sp code computes the one-rank function;
+    bf16 rounds the two summation orders apart)."""
+    import torch
+
+    tr, db, names = ref["tr"], ref["db"], ref["names"]
+    layout = sp_one_rank_layout(tr, mode)
+
+    def loss_and_grads(cdtype):
+        params = [dict(layout.named_parameters())[n] for n in names]
+        saved, tr.cdtype = tr.cdtype, cdtype
+        try:
+            with tr._scope():
+                loss = sp_loss(tr, layout, db)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        finally:
+            tr.cdtype = saved
+        return [loss.detach()] + [torch.zeros_like(p) if gr is None else gr
+                                  for p, gr in zip(params, grads)]
+
+    bf16 = loss_and_grads(tr.cdtype)
+    fp32 = loss_and_grads(None)
+    mesh = {n: rel_err(mg.to(DEVICE), lg) for n, mg, lg in zip(names, mesh_grads, bf16[1:])}
+    fp = {n: rel_err(lg, og) for n, lg, og in zip(names, fp32[1:], ref["fp32"][1:])}
+    check = {"mesh_vs_layout": max(mesh.values()), "mesh_vs_layout_param": max(mesh, key=mesh.get),
+             "layout_fp32_vs_one_rank_fp32": max(fp.values()),
+             "layout_fp32_vs_one_rank_fp32_param": max(fp, key=fp.get),
+             "layout_bf16_vs_one_rank_bf16": bf16_gate(bf16, ref["bf16"], ref["fp32"],
+                                                       ("loss",) + tuple(names))}
+    check["ok"] = (check["mesh_vs_layout"] <= BF16_GATE
+                   and check["layout_fp32_vs_one_rank_fp32"] <= F32_STEP_RESOLUTION)
+    del layout, bf16, fp32
+    torch.cuda.empty_cache()
+    return check
+
+
+def sp_reference(root: str, out: str, trainer: str, prec: str) -> dict:
+    """The one-rank step of a train_sp run: its loss and gradients on the
+    card (under bf16 also the same trainer's fp32 step, the bf16 gate's
+    reference), the trainer and batch for the layout checks, the peak
+    memory; HFB's state and eval logits after one step and the float64
+    replay of its gradients."""
+    import copy
+
+    import torch
+
+    tr, db = sp_trainer(root, out, trainer, (1, 1), "gather", prec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, names, grads = sp_loss_and_grads(tr, db)
+    torch.cuda.synchronize()
+    ref = {"loss": loss.item(), "names": names, "grads": grads, "tr": tr, "db": db,
+           "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if prec != "fp32":
+        ref["bf16"] = [loss] + grads
+        saved, tr.cdtype = tr.cdtype, None
+        try:
+            loss32, _, grads32 = sp_loss_and_grads(tr, db)
+        finally:
+            tr.cdtype = saved
+        ref["fp32"] = [loss32] + grads32
+    if trainer == "HFB":
+        m64 = copy.deepcopy(tr.model).double()
+        db64 = {k: v.double() if v.is_floating_point() else v for k, v in db.items()}
+        params = [dict(m64.named_parameters())[n] for n in names]
+        ref["float64"] = list(torch.autograd.grad(sp_loss(tr, m64, db64), params))
+        del m64, db64
+        tr.train_step(db)
+        ref["state"] = {k: v.detach().to("cpu", copy=True)
+                        for k, v in tr.model.state_dict().items()}
+        ref["eval_logits"] = eval_logits(tr, tr.test_db).cpu()
+    if trainer == "MBTRAIN" and prec == "fp32":  # K4+K5 on one rank at the same bag
+        from imp_torch.ops.modularity import _prepare, modularity_passes
+
+        with torch.no_grad():
+            enc = tr.model.encode(db, train=False)
+            norm_x, cs = _prepare((enc["p_proto"], enc["h_omic"]), enc["h_path_bag"],
+                                  db["img_mask"])
+            cs = [c.contiguous() for c in cs]
+            ref["k4_k5_ms"] = cuda_ms(lambda: modularity_passes(norm_x, cs, MOD_TEMP), 5)
+            del enc, norm_x, cs
+    return ref
+
+
+def hfb_check(ref: dict, mine: dict) -> dict:
+    """HFB's (2, 1) step against the one-rank step at the global batch:
+    every gradient within STEP_TOL of the one-rank gradient or of its
+    float64 replay (float32 cannot resolve some of HFB's gradients to
+    STEP_TOL: its BatchNorm normalises 2B rows, and the mesh sums the
+    moments in another order), or no farther from the float64 replay than
+    twice the one-rank float32 gradient; the running mean and variance
+    after the step and rank 0's eval logits from them within STEP_TOL, and
+    rank 0's state loading strictly into the one-rank model."""
+    import torch
+
+    names, tr = ref["names"], ref["tr"]
+    misses, worst = {}, (None, 0.0)
+    for n, g, w, x in zip(names, mine["grads"], ref["grads"], ref["float64"]):
+        g = g.to(DEVICE)
+        g_w, g_x, w_x = rel_err(g, w), rel_err(g.double(), x), rel_err(w.double(), x)
+        if g_w > worst[1]:
+            worst = (n, g_w)
+        if g_w > STEP_TOL:
+            misses[n] = {"mesh_vs_one_rank": g_w, "mesh_vs_float64": g_x,
+                         "one_rank_vs_float64": w_x, "max_abs_grad": x.abs().max().item(),
+                         "passed": g_x <= max(STEP_TOL, 2 * w_x)}
+    grads = {"ok": all(m["passed"] for m in misses.values()), "worst": worst, "misses": misses}
+    stats = {k: rel_err(mine["state"][k], v) for k, v in ref["state"].items()
+             if k.endswith(("running_mean", "running_var"))}
+    moved = all(float((ref["state"][k] - (0.0 if k.endswith("mean") else 1.0)).abs().max()) > 0
+                for k in stats)
+    reload = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    tr.model.load_state_dict({k: v.to(DEVICE) for k, v in mine["state"].items()}, strict=True)
+    reloaded = eval_logits(tr, tr.test_db).cpu()
+    tr.model.load_state_dict(reload, strict=True)
+    check = {"grads": grads, "running_stats_rel": max(stats.values()), "running_stats": len(stats),
+             "running_stats_moved": moved,
+             "eval_logits_rel": rel_err(mine["eval_logits"], ref["eval_logits"]),
+             "reload_eval_logits_rel": rel_err(reloaded, ref["eval_logits"]), "tol_rel": STEP_TOL}
+    check["ok"] = (grads["ok"] and moved and check["running_stats_rel"] <= STEP_TOL
+                   and check["eval_logits_rel"] <= STEP_TOL
+                   and check["reload_eval_logits_rel"] <= STEP_TOL)
+    del reload
+    torch.cuda.empty_cache()
+    return check
+
+
 def phase_train_sp(card: str, root: str, out: str):
     """Two ranks of :func:`imp_torch.parallel.launch.spawn`: NCCL where
     there are two cards, else both on card 0 over gloo with host-staged
-    collectives.  Each run of ``SP_RUNS`` (TransMIL under flash at the
-    10 000 = 100² bag, gather and ring; UMEML_GAN at batch 8, bag
-    10 000 x 512, gather and ring; UMEML_GAN at (2, 1), batch 4 a rank)
-    holds one step's loss and every gradient against the one-rank step on
-    the card within STEP_TOL (for UMEML_GAN under sp, where the max over
+    collectives.  Each run of ``SP_RUNS`` holds one step against the
+    one-rank step on the card: TransMIL under flash at the 10 000 = 100²
+    bag, gather and ring, and UMEML_GAN at batch 8, bag 10 000 x 512,
+    gather and ring, and at (2, 1), batch 4 a rank: the loss and every
+    gradient within STEP_TOL (for UMEML_GAN under sp, where the max over
     prototypes makes a gradient jump under rounding-level changes of the
-    forward, :func:`sp_layout_check` judging a miss), and
-    records each rank's launches (K1-K3 for TransMIL; no K4/K5 under sp,
-    where the plain row-band passes run; K4/K5 once a step at (2, 1)),
-    peak memory and step time with its backend, and the plain sp
-    modularity passes beside K4+K5 on one rank."""
+    forward, :func:`sp_layout_check` judging a miss); UMEML_GAN under
+    flash at ``TRAINER.PREC bf16``, gather and ring, and TransMIL at
+    ``amp``, ring (K1-K3's bf16 entries on every hop): within phase 22's
+    bf16 gate of the one-rank bf16 step (:func:`bf16_gate`, the same
+    trainer's fp32 step as its reference; for UMEML_GAN a miss goes to
+    :func:`sp_layout_check_bf16`); HFB at (2, 1), its BatchNorm over the
+    data axis: :func:`hfb_check`.  Records each rank's launches (K1-K3 or
+    their bf16 entries for the flash runs; no K4/K5 under sp, where the
+    plain row-band passes run; K4/K5 once a step at (2, 1)), peak memory
+    and step time with its backend, and the plain sp modularity passes
+    beside K4+K5 on one rank."""
     import torch
 
     from imp_torch import kernels
-    from imp_torch.ops.modularity import _prepare, modularity_passes
     from imp_torch.parallel.launch import spawn
 
     count = torch.cuda.device_count()
@@ -4135,63 +4394,67 @@ def phase_train_sp(card: str, root: str, out: str):
     print(f"chip_smoke: train_sp on {count} card(s) over {backend}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     refs = {}
-    for trainer in ("TransMIL", "MBTRAIN"):
-        tr, db = sp_trainer(root, os.path.join(out, f"one_{trainer}"), trainer, (1, 1), "gather")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        loss, names, grads = sp_loss_and_grads(tr, db)
-        torch.cuda.synchronize()
-        refs[trainer] = {"loss": loss.item(), "names": names, "grads": grads, "tr": tr, "db": db,
-                         "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
-        if trainer == "MBTRAIN":  # K4+K5 on one rank at the same bag
-            with torch.no_grad():
-                enc = tr.model.encode(db, train=False)
-                norm_x, cs = _prepare((enc["p_proto"], enc["h_omic"]), enc["h_path_bag"],
-                                      db["img_mask"])
-                cs = [c.contiguous() for c in cs]
-                refs[trainer]["k4_k5_ms"] = cuda_ms(
-                    lambda: modularity_passes(norm_x, cs, MOD_TEMP), 5)
-                del enc, norm_x, cs
+    for _, trainer, _, _, prec in SP_RUNS:
+        if (trainer, prec) not in refs:
+            refs[(trainer, prec)] = sp_reference(
+                root, os.path.join(out, f"one_{trainer}_{prec}"), trainer, prec)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    got = spawn(sp_rank, 2, (root, out), device=DEVICE, timeout=600)
+    got = spawn(sp_rank, 2, (root, out), device=DEVICE, timeout=900)
     spawn_s = time.perf_counter() - t0
     rows = {}
-    for run, trainer, shape, mode in SP_RUNS:
-        ref, mine = refs[trainer], got[0][run]
+    for run, trainer, shape, mode, prec in SP_RUNS:
+        ref, mine = refs[(trainer, prec)], got[0][run]
         errs = {n: rel_err(a.to(DEVICE), b)
                 for n, a, b in zip(ref["names"], mine["grads"], ref["grads"])}
         worst = max(errs, key=errs.get)
         check = {"loss_rel": abs(mine["loss"] - ref["loss"]) / max(abs(ref["loss"]), 1e-30),
                  "grad_rel": errs[worst], "worst_param": worst, "params": len(errs),
                  "tol_rel": STEP_TOL}
-        ok = check["loss_rel"] <= STEP_TOL
-        if errs[worst] > STEP_TOL:
-            require(trainer == "MBTRAIN" and shape[1] > 1,
-                    f"train_sp {run}: the mesh step disagrees with the one-rank step: {check}")
-            check["layout"] = sp_layout_check(ref, mine["grads"], mode)
-            ok &= check["layout"]["ok"]
+        if trainer == "HFB":
+            check["hfb"] = hfb_check(ref, mine)
+            ok = check["hfb"]["ok"]
+        elif prec != "fp32":
+            mesh = [torch.tensor(mine["loss"], device=DEVICE)] + [g.to(DEVICE)
+                                                                for g in mine["grads"]]
+            check["bf16_gate"] = bf16_gate(mesh, ref["bf16"], ref["fp32"],
+                                           ("loss",) + tuple(ref["names"]))
+            ok = check["bf16_gate"]["ok"]
+            if not ok:
+                require(trainer == "MBTRAIN",
+                        f"train_sp {run}: the bf16 mesh step misses the bf16 gate: {check}")
+                check["layout"] = sp_layout_check_bf16(ref, mine["grads"], mode)
+                ok = check["layout"]["ok"]
+        else:
+            ok = check["loss_rel"] <= STEP_TOL
+            if errs[worst] > STEP_TOL:
+                require(trainer == "MBTRAIN" and shape[1] > 1,
+                        f"train_sp {run}: the mesh step disagrees with the one-rank step: {check}")
+                check["layout"] = sp_layout_check(ref, mine["grads"], mode)
+                ok &= check["layout"]["ok"]
         keys = ("launches", "peak_device_gib", "step_ms_median", "step_ms", "batch_rows",
                 "bag_tokens", "backend", "sp_modularity_ms")
         per_rank = [{k: r[run][k] for k in keys if k in r[run]} for r in got]
         row = {"phase": "train_sp", "run": run, "card": card, "cards": count,
                "backend": backend, "backend_note": SP_BACKEND_NOTE[backend],
                "mesh": {"data": shape[0], "seq": shape[1]}, "sp_attention": mode,
+               "prec": prec, "attention": sp_attention(trainer, prec),
                "check": check, "ranks": per_rank,
                "one_rank_peak_device_gib": ref["peak_device_gib"]}
-        if trainer == "MBTRAIN":
+        if "k4_k5_ms" in ref:
             row["one_rank_k4_k5_ms"] = ref["k4_k5_ms"]
         emit(row)
         require(ok, f"train_sp {run}: the mesh step disagrees with the one-rank step: {check}")
+        flash = [BF16_ENTRIES[kn] if prec != "fp32" else kn for kn in FLASH_PRODUCTS]
         for pr in per_rank:
             la = pr["launches"]
-            if trainer == "TransMIL":
-                require(all(la.get(kn, 0) > 0 for kn in FLASH_PRODUCTS),
-                        f"train_sp {run}: K1-K3 did not launch on a rank: {la}")
-            elif shape[1] > 1:
+            if sp_attention(trainer, prec) == "flash":
+                require(all(la.get(kn, 0) > 0 for kn in flash),
+                        f"train_sp {run}: K1-K3 ({flash}) did not launch on a rank: {la}")
+            if trainer == "MBTRAIN" and shape[1] > 1:
                 require(not any(kn.startswith("modularity") and c for kn, c in la.items()),
                         f"train_sp {run}: K4/K5 launched under sp: {la}")
-            else:
+            elif trainer == "MBTRAIN":
                 require(la.get("modularity_deg") == 1 and la.get("modularity_combined") == 1,
                         f"train_sp {run}: K4/K5 must launch once a step a rank: {la}")
         rows[run] = row
@@ -4203,18 +4466,312 @@ def phase_train_sp(card: str, root: str, out: str):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the tensor- and pipeline-parallel CLIP towers
+# ---------------------------------------------------------------------------
+
+CLIP_PAR_PATCHES = 128  # images each (layout, precision) encodes, timed after a warm-up batch
+CLIP_PAR_MICROBATCHES = 4
+#: (layout, tp, pp) of clip_tp_pp, two ranks each
+CLIP_PAR_RUNS = (("tp", 2, 1), ("pp", 1, 2))
+
+
+def clip_size() -> int:
+    """The image side of CLIP_MODEL."""
+    from imp_torch.models.clip import CLIP_CONFIGS
+
+    return CLIP_CONFIGS[CLIP_MODEL]["image_resolution"]
+
+
+def clip_par_patches():
+    """The seeded uint8 patches of clip_tp_pp."""
+    size = clip_size()
+    return np.random.default_rng(SEED + 1).integers(
+        0, 256, size=(CLIP_PAR_PATCHES, size, size, 3), dtype=np.uint8)
+
+
+def clip_encode_timed(encode, patches, device) -> tuple:
+    """(features, seconds) of the patches through ``clip_feature.encode_slide``
+    at CLIP_BATCH, after one warm-up batch."""
+    import torch
+
+    from imp_torch.tools.clip_feature import encode_slide
+
+    size = patches.shape[1]
+    encode_slide(encode, lambda i: patches[i], list(range(CLIP_BATCH)), CLIP_BATCH, size, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = encode_slide(encode, lambda i: patches[i], list(range(len(patches))), CLIP_BATCH,
+                         size, device)
+    torch.cuda.synchronize()
+    return feats, time.perf_counter() - t0
+
+
+def clip_par_rank(rank: int):
+    """One rank of clip_tp_pp: for each layout of CLIP_PAR_RUNS and each
+    precision, the tower split over both ranks
+    (``clip_feature.build_parallel_encoder``, random weights from seed 0 as
+    the one-rank tool draws them), its features of the seeded patches
+    through ``encode_slide`` (rank 0 returns them), images/s, this rank's
+    block-weight bytes and peak memory."""
+    import torch
+
+    from imp_torch.tools.clip_feature import build_parallel_encoder
+
+    from imp_torch.parallel.mesh import rank_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = rank_device(DEVICE, rank)
+    patches = clip_par_patches()
+    res = {}
+    for layout, tp, pp in CLIP_PAR_RUNS:
+        for prec in ("fp32", "bf16"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            mesh, encode, params = build_parallel_encoder(CLIP_MODEL, tp, pp,
+                                                          CLIP_PAR_MICROBATCHES, device, prec)
+            split = params["shard"].values() if tp > 1 else [params["stages"]]
+            block_bytes = sum(t.numel() * t.element_size() for blk in split for t in blk.values())
+            if tp > 1:  # the replicated per-block LayerNorms and biases
+                block_bytes += sum(t.numel() * t.element_size() for k, t in params["rep"].items()
+                                   if k.startswith("resblocks."))
+            feats, seconds = clip_encode_timed(encode, patches, device)
+            row = {"images_per_s": len(patches) / seconds, "seconds": seconds,
+                   "block_weight_bytes": block_bytes,
+                   "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "backend": (mesh.model if tp > 1 else mesh.pipe).backend}
+            if rank == 0:
+                row["feats"] = feats
+            res[(layout, prec)] = row
+            del encode, params
+    return res
+
+
+def phase_clip_tp_pp(card: str):
+    """The ViT-B/16 tower at full width (12 blocks of 768, 12 heads, 224 px),
+    random weights, split over two ranks of
+    :func:`imp_torch.parallel.launch.spawn` (NCCL on two cards, else both on
+    card 0 over gloo): tensor parallel at tp = 2 and pipeline parallel at
+    pp = 2 with 4 microbatches, each in fp32 and bf16, driven through
+    ``clip_feature.encode_slide`` on seeded uint8 patches at batch 32.  The
+    fp32 features within CLIP_TOL of the one-rank tower's (max-abs) and 2
+    images within CLIP_TOL of their float64 CPU replay; the bf16 features'
+    cosine to the one-rank fp32 ones at least CLIP_BF16_COS; images/s, each
+    rank's block-weight bytes and peak memory beside the one-rank tower's.
+    No kernel of ``csrc`` runs (the JAX towers use no Pallas kernel)."""
+    import torch
+
+    from imp_torch import kernels
+    from imp_torch.parallel.launch import spawn
+    from imp_torch.tools.clip_feature import build_encoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    count = torch.cuda.device_count()
+    patches = clip_par_patches()
+    one = {}
+    for prec in ("fp32", "bf16"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tower, encode = build_encoder(CLIP_MODEL, DEVICE, prec)
+        feats, seconds = clip_encode_timed(encode, patches, DEVICE)
+        one[prec] = {"images_per_s": len(patches) / seconds, "seconds": seconds,
+                     "block_weight_bytes": sum(p.numel() * p.element_size()
+                                               for p in tower.resblocks.parameters()),
+                     "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "feats": feats}
+        if prec == "fp32":
+            x = torch.from_numpy(patches[:CLIP_REPLAY_IMAGES]).to(DEVICE)
+            replay = float64_replay(tower, x)
+        del tower, encode
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = spawn(clip_par_rank, 2, (), device=DEVICE, timeout=600)
+    spawn_s = time.perf_counter() - t0
+    launches = only_launched(kernels.launches())
+    ref32 = one["fp32"]["feats"]
+    runs, ok = {}, True
+    for layout, tp, pp in CLIP_PAR_RUNS:
+        for prec in ("fp32", "bf16"):
+            feats = got[0][(layout, prec)].pop("feats")
+            check = {"shape": list(feats.shape), "finite": bool(np.isfinite(feats).all())}
+            if prec == "fp32":
+                check.update(
+                    vs_one_rank_rel=rel_max_err(torch.from_numpy(feats),
+                                                torch.from_numpy(ref32)),
+                    replay_rel=rel_max_err(torch.from_numpy(feats[:CLIP_REPLAY_IMAGES]), replay),
+                    tol=CLIP_TOL)
+                passed = check["vs_one_rank_rel"] <= CLIP_TOL and check["replay_rel"] <= CLIP_TOL
+            else:
+                cos = (feats * ref32).sum(1) / (np.linalg.norm(feats, axis=1)
+                                                * np.linalg.norm(ref32, axis=1))
+                check.update(cos_min_vs_one_rank_fp32=float(cos.min()), cos_floor=CLIP_BF16_COS)
+                passed = check["cos_min_vs_one_rank_fp32"] >= CLIP_BF16_COS
+            check["ok"] = passed and check["finite"] and feats.shape == ref32.shape
+            ok &= check["ok"]
+            runs[f"{layout}_{prec}"] = {"tp": tp, "pp": pp, "check": check,
+                                        "ranks": [r[(layout, prec)] for r in got],
+                                        "one_rank": {k: v for k, v in one[prec].items()
+                                                     if k != "feats"}}
+    row = {"phase": "clip_tp_pp", "card": card, "cards": count,
+           "backend": "nccl" if count >= 2 else "gloo", "model": CLIP_MODEL,
+           "batch": CLIP_BATCH, "images": CLIP_PAR_PATCHES,
+           "microbatches": CLIP_PAR_MICROBATCHES, "runs": runs, "launches": launches,
+           "spawn_seconds": spawn_s}
+    emit(row)
+    require(ok, f"clip_tp_pp: a split tower disagrees with the one-rank tower: {row}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# --sp-only: the extraction tools under torchrun
+# ---------------------------------------------------------------------------
+
+#: slides (patch counts) of the tools' synthetic tree: two of three batches
+#: and a single patch (which clip_feature_dp skips)
+TOOL_SLIDES = {"s0": 96, "s1": 64, "single": 1}
+
+
+def has_h5py() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("h5py") is not None
+
+
+def make_tool_tree(root: str) -> str:
+    """``<root>/tcga_x/images/train/<slide>/pNNN.png``: each a seeded uint8
+    ViT-B/16 patch saved with ``np.save`` (PIL may be absent on the card's
+    host; :func:`rank_tool` reads them back); returns the slides' dir."""
+    size = clip_size()
+    src = os.path.join(root, "tcga_x", "images", "train")
+    rng = np.random.default_rng(SEED + 2)
+    for slide, n in TOOL_SLIDES.items():
+        os.makedirs(os.path.join(src, slide))
+        for i in range(n):
+            with open(os.path.join(src, slide, f"p{i:03d}.png"), "wb") as f:
+                np.save(f, rng.integers(0, 256, size=(size, size, 3), dtype=np.uint8))
+    return src
+
+
+def rank_tool(tool: str, *argv) -> int:
+    """One torchrun rank of ``imp_torch.tools.<tool>`` on the tree of
+    :func:`make_tool_tree`: its patches read with ``np.load``, and, where
+    h5py is absent, each slide's features saved by ``np.save`` to
+    ``<slide>.h5.npy`` in place of the ``.h5`` (said so in the phase's
+    row)."""
+    import importlib
+
+    mod = importlib.import_module(f"imp_torch.tools.{tool}")
+    base = importlib.import_module("imp_torch.tools.clip_feature")
+
+    def load(path, size, as_uint8=False):
+        return np.load(path)
+
+    def save(out_path, key, feats):
+        np.save(out_path + ".npy", feats)
+
+    for m in {mod, base}:
+        m.preprocess = load
+        if not has_h5py():
+            m.write_features = save
+    mod.main(list(argv))
+    return 0
+
+
+def read_features(path: str) -> np.ndarray:
+    """A slide's features as the tool (or :func:`rank_tool`'s stand-in) wrote them."""
+    if has_h5py():
+        import h5py
+
+        with h5py.File(path) as f:
+            return f["clip_feature"][()]
+    return np.load(path + ".npy")
+
+
+def phase_clip_tools(card: str, tmp: str) -> dict:
+    """``torchrun --standalone --nproc-per-node <cards>`` of
+    ``imp_torch.tools.clip_feature --tp <cards>`` and ``--pp <cards>`` (4
+    microbatches) and of ``imp_torch.tools.clip_feature_dp`` (the global
+    batch of 32 split over every card) on the tree of :func:`make_tool_tree`
+    (ViT-B/16, random weights): every rank exits 0, and each slide's
+    features equal the one-card tool's (``build_encoder`` and
+    ``encode_slide`` on card 0) within CLIP_TOL of the max-abs; the dp tool
+    skips the single-patch slide.  Where h5py is absent the tools' writer
+    is replaced by ``np.save`` (the row says so)."""
+    import torch
+
+    from imp_torch.tools.clip_feature import build_encoder, encode_slide
+
+    n = torch.cuda.device_count()
+    src = make_tool_tree(os.path.join(tmp, "tools"))
+    size = clip_size()
+    _, encode = build_encoder(CLIP_MODEL, DEVICE, "fp32")
+    want = {}
+    for slide in TOOL_SLIDES:
+        items = sorted(os.listdir(os.path.join(src, slide)))
+        want[slide] = encode_slide(encode, lambda f, s=slide: np.load(os.path.join(src, s, f)),
+                                   items, CLIP_BATCH, size, DEVICE)
+    del encode
+    torch.cuda.empty_cache()
+    common = ["--random-weights", "--batch-size", str(CLIP_BATCH), "--key", "clip_feature",
+              "--device", DEVICE]
+    runs = {
+        "tp": ("clip_feature", ["--src", src, "--dst", os.path.join(tmp, "feat_tp"), "--model",
+                                CLIP_MODEL, "--tp", str(n)] + common),
+        "pp": ("clip_feature", ["--src", src, "--dst", os.path.join(tmp, "feat_pp"), "--model",
+                                CLIP_MODEL, "--pp", str(n), "--microbatches", "4"] + common),
+        "dp": ("clip_feature_dp", ["--root", os.path.join(tmp, "tools"), "--dataset", "tcga_x",
+                                   "--output-dir", os.path.join(tmp, "feat_dp"), "--model",
+                                   "clip_vit_b16"] + common),
+    }
+    rows = {}
+    for name, (tool, argv) in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            ["torchrun", "--standalone", "--nproc-per-node", str(n), os.path.abspath(__file__),
+             "--rank-tool", tool] + argv, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        out_dir = (os.path.join(tmp, "feat_dp", "clip_vit_b16", "tcga_x") if name == "dp"
+                   else argv[argv.index("--dst") + 1])
+        errs, present = {}, {}
+        for slide in TOOL_SLIDES:
+            path = os.path.join(out_dir, slide + ".h5")
+            present[slide] = os.path.exists(path if has_h5py() else path + ".npy")
+            if present[slide]:
+                got = read_features(path)
+                errs[slide] = (rel_max_err(torch.from_numpy(got), torch.from_numpy(want[slide]))
+                               if got.shape == want[slide].shape else float("inf"))
+        expect = {s: not (name == "dp" and c <= 1) for s, c in TOOL_SLIDES.items()}
+        row = {"phase": "clip_tools", "card": card, "cards": n, "tool": tool, "run": name,
+               "rc": proc.returncode, "seconds": seconds, "slides_written": present,
+               "rel_err_vs_one_card": errs, "tol": CLIP_TOL,
+               "writer": "h5py" if has_h5py() else
+               "np.save to <slide>.h5.npy (h5py is absent on this host; no .h5 written)"}
+        emit(row)
+        require(proc.returncode == 0 and present == expect
+                and all(e <= CLIP_TOL for e in errs.values()),
+                f"clip tool {name} failed: {row}\n{proc.stderr[-4000:]}")
+        rows[name] = row
+    return rows
+
+
 #: the train CLI runs of ``--sp-only`` under torchrun, one rank per card:
-#: (trainer, TPU.MESH_SHAPE as a function of the card count, SP_ATTENTION)
-SP_CLI_RUNS = (("TransMIL", lambda n: (1, n), "ring"),
-               ("MBTRAIN", lambda n: (n // 2, 2), "gather"))
+#: (name, trainer, TPU.MESH_SHAPE as a function of the card count,
+#: SP_ATTENTION, further options)
+SP_CLI_RUNS = (("TransMIL", "TransMIL", lambda n: (1, n), "ring", ()),
+               ("MBTRAIN", "MBTRAIN", lambda n: (n // 2, 2), "gather", ()),
+               ("MBTRAIN_bf16", "MBTRAIN", lambda n: (n // 2, 2), "ring",
+                ("TRAINER.PREC", "bf16", "TPU.ATTENTION", "flash")))
 
 
-def rank_cli(root: str, out: str, trainer: str, shape: str, mode: str) -> int:
+def rank_cli(root: str, out: str, trainer: str, shape: str, mode: str, extra: str = "[]") -> int:
     """One torchrun rank of ``python -m imp_torch.tools.train`` for one epoch
     on the seeded bags (the card's host has no h5py): TransMIL under flash
     (TransMIL.yaml) or MBTRAIN on UMEML_GAN.yaml's values, on the mesh
-    ``shape`` of ('data', 'seq'); writes ``rank_cli<RANK>.json`` beside
-    ``out`` (the ranks' stdout interleaves)."""
+    ``shape`` of ('data', 'seq'), with the options of the JSON list
+    ``extra``; writes ``rank_cli<RANK>.json`` beside ``out`` (the ranks'
+    stdout interleaves)."""
     from imp_torch import kernels
     from imp_torch.tools.train import run
 
@@ -4225,7 +4782,7 @@ def rank_cli(root: str, out: str, trainer: str, shape: str, mode: str) -> int:
                  os.path.join(CONFIGS, "Survival", "UMEML_GAN.yaml"), "--output-dir", out,
                  "--device", DEVICE] + flagship_opts(**{"OPTIM.MAX_EPOCH": 1}))
     argv += ["TPU.MESH_AXES", "('data','seq')", "TPU.MESH_SHAPE", shape,
-             "TPU.SP_ATTENTION", mode]
+             "TPU.SP_ATTENTION", mode] + json.loads(extra)
     with seeded_bags():
         kernels.reset_launches()
         t0 = time.perf_counter()
@@ -4234,7 +4791,7 @@ def rank_cli(root: str, out: str, trainer: str, shape: str, mode: str) -> int:
     rank = int(os.environ["RANK"])
     with open(f"{out}.rank_cli{rank}.json", "w") as f:
         json.dump({"rank": rank, "trainer": trainer, "mesh": shape, "sp_attention": mode,
-                   "result": result, "seconds": seconds,
+                   "options": json.loads(extra), "result": result, "seconds": seconds,
                    "launches": only_launched(kernels.launches())}, f)
     return 0
 
@@ -4248,12 +4805,12 @@ def phase_train_sp_cli(card: str, root: str, out: str) -> dict:
 
     n = torch.cuda.device_count()
     rows = {}
-    for trainer, shape_of, mode in SP_CLI_RUNS:
-        shape, run_out = str(shape_of(n)), os.path.join(out, f"cli_{trainer}")
+    for name, trainer, shape_of, mode, extra in SP_CLI_RUNS:
+        shape, run_out = str(shape_of(n)), os.path.join(out, f"cli_{name}")
         t0 = time.perf_counter()
         proc = subprocess.run(
             ["torchrun", "--standalone", "--nproc-per-node", str(n), os.path.abspath(__file__),
-             "--rank-cli", root, run_out, trainer, shape, mode],
+             "--rank-cli", root, run_out, trainer, shape, mode, json.dumps(list(extra))],
             capture_output=True, text=True, timeout=600)
         ranks = []
         for r in range(n):
@@ -4261,21 +4818,23 @@ def phase_train_sp_cli(card: str, root: str, out: str) -> dict:
             if os.path.exists(path):
                 with open(path) as f:
                     ranks.append(json.load(f))
-        row = {"phase": "train_sp_cli", "card": card, "cards": n, "trainer": trainer,
-               "mesh": shape, "sp_attention": mode, "rc": proc.returncode,
+        row = {"phase": "train_sp_cli", "card": card, "cards": n, "run": name,
+               "trainer": trainer, "mesh": shape, "sp_attention": mode,
+               "options": list(extra), "rc": proc.returncode,
                "seconds": time.perf_counter() - t0, "ranks": ranks}
         emit(row)
         require(proc.returncode == 0 and len(ranks) == n
                 and len({r["result"] for r in ranks}) == 1,
                 f"torchrun of the train CLI failed: {row}\n{proc.stderr[-4000:]}")
-        rows[trainer] = row
+        rows[name] = row
     return rows
 
 
 def sp_only() -> int:
     """``python3 chip_smoke.py --sp-only`` on a host of several cards: the
-    kernels built, then ``train_sp`` (NCCL between two of the cards) and
-    ``train_sp_cli`` (every card a rank), the card line and the ok line."""
+    kernels built, then ``train_sp`` and ``clip_tp_pp`` (NCCL between two
+    of the cards), ``train_sp_cli`` and ``clip_tools`` (every card a rank),
+    the card line and the ok line."""
     import torch
 
     from imp_torch import kernels
@@ -4290,7 +4849,9 @@ def sp_only() -> int:
     with tempfile.TemporaryDirectory(prefix="imp_torch_sp_") as tmp:
         root = make_train_tree(os.path.join(tmp, "tree"))
         phase_train_sp(card, root, os.path.join(tmp, "sp"))
+        phase_clip_tp_pp(card)
         phase_train_sp_cli(card, root, os.path.join(tmp, "sp_cli"))
+        phase_clip_tools(card, tmp)
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -4371,7 +4932,9 @@ def main() -> int:
         clocked("umeml_gan_variants", phase_umeml_gan_variants, card, root,
                 os.path.join(tmp, "variants"))
         partial_row = clocked("kernel_flash_partial", phase_flash_partial, card)
+        partial_bf16_row = clocked("kernel_flash_partial_bf16", phase_flash_partial, card, "bf16")
         sp_rows = clocked("train_sp", phase_train_sp, card, root, os.path.join(tmp, "sp"))
+        clocked("clip_tp_pp", phase_clip_tp_pp, card)
         clocked("clip_vit_b16", phase_clip_vit_b16, card)
         clocked("clip_rn50", phase_clip_rn50, card)
         clocked("train_clipomic", phase_train_clipomic, card, root, os.path.join(tmp, "clipomic"))
@@ -4417,26 +4980,32 @@ def main() -> int:
                 "max_abs_err": max(r["max_abs_err"] for (k, _), r in bf16_rows.items()
                                    if k == name)}
 
-    def partial_entry(name):
-        """The kernel under the ring's per-chunk contract: launches per hop
-        and per ring of kernel_flash_partial, its per-hop and one-call
-        times there, and its launches per rank in train_sp's TransMIL
-        steps (ring and gather)."""
+    def partial_entry(name, row=None, runs=("transmil_ring", "transmil_gather")):
+        """The kernel (or its bf16 entry: ``row`` the bf16 phase 29) under
+        the ring's per-chunk contract: launches per hop and per ring of
+        kernel_flash_partial, its per-hop and one-call times there, and the
+        entry's launches per rank in train_sp's ``runs``."""
+        row = row or partial_row
         side = "fwd" if name == "flash_fwd" else "bwd"
+        entry = row["entries"][name]
         return {
-            "shape": partial_row["shape"], "chunks": partial_row["chunks"],
-            "launches_per_hop": partial_row["launches_per_hop"][name],
-            "launches": partial_row["launches"][name],
-            "hop_ms": partial_row[f"{side}_hop_ms"],
-            "ring_ms": partial_row[f"{side}_ring_ms"],
-            "one_call_ms": partial_row[f"{side}_one_call_ms"],
+            "entry": entry, "shape": row["shape"], "chunks": row["chunks"],
+            "launches_per_hop": row["launches_per_hop"][name],
+            "launches": row["launches"][name],
+            "hop_ms": row[f"{side}_hop_ms"],
+            "ring_ms": row[f"{side}_ring_ms"],
+            "one_call_ms": row[f"{side}_one_call_ms"],
             **({"covers": "K2 and K3 together (one flash_attention_bwd call a hop)"}
                if side == "bwd" else {}),
-            "max_abs_err": partial_row["max_abs_err"][name],
+            "max_abs_err": row["max_abs_err"][name],
             "train_sp_launches_per_rank": {
-                run: [r["launches"].get(name, 0) for r in sp_rows[run]["ranks"]]
-                for run in ("transmil_ring", "transmil_gather")},
+                run: [r["launches"].get(entry, 0) for r in sp_rows[run]["ranks"]]
+                for run in runs},
         }
+
+    def partial_bf16_entry(name):
+        return partial_entry(name, partial_bf16_row,
+                             ("umeml_gan_bf16_gather", "umeml_gan_bf16_ring", "transmil_amp_ring"))
 
     def modularity_entry(name):
         main = mrows[(name, MOD_MAIN_SHAPE)]
@@ -4463,6 +5032,7 @@ def main() -> int:
             "share_of_bound": main["share_of_bound"],
             "dynamic_smem_bytes": main["dynamic_smem_bytes"], "ptxas": main["ptxas"],
             "cmta": cmta_entry(name), "bf16": bf16_entry(name), "partial": partial_entry(name),
+            "partial_bf16": partial_bf16_entry(name),
         }
 
     def pinv_entry(name):
@@ -4490,7 +5060,7 @@ def main() -> int:
             else "operations",
             "library_ms": per_forward("library_ms"),
             "cmta": cmta_entry("flash_fwd"), "bf16": bf16_entry("flash_fwd"),
-            "partial": partial_entry("flash_fwd"),
+            "partial": partial_entry("flash_fwd"), "partial_bf16": partial_bf16_entry("flash_fwd"),
         },
         *(flash_bwd_entry(n) for n in ("flash_bwd_dq", "flash_bwd_dkv")),
         modularity_entry("modularity_deg"),
@@ -4505,5 +5075,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-cli"]:
-        sys.exit(rank_cli(*sys.argv[2:7]))
+        sys.exit(rank_cli(*sys.argv[2:8]))
+    if sys.argv[1:2] == ["--rank-tool"]:
+        sys.exit(rank_tool(*sys.argv[2:]))
     sys.exit(sp_only() if sys.argv[1:] == ["--sp-only"] else main())

@@ -15,9 +15,11 @@ accuracy, AUC and macro-F1 from ``evaluation/evaluators.py``).
 One process drives one device (``cuda`` unless the caller passes
 ``device="cpu"``).  Under ``torchrun`` (or
 :func:`imp_torch.parallel.launch.spawn`) the ranks form the mesh of
-``TPU.MESH_AXES``/``TPU.MESH_SHAPE`` (:func:`imp_torch.parallel.make_mesh`;
-axes ``data`` and ``seq``, one rank per card on ``cuda:LOCAL_RANK``); a
-single process is the world of one.  Every rank loads the whole global
+``TPU.MESH_AXES``/``TPU.MESH_SHAPE`` (:func:`imp_torch.parallel.make_mesh`,
+one rank per card on ``cuda:LOCAL_RANK``; the trainers split over ``data``
+and ``seq``, and the ranks of a ``model`` or ``pipe`` axis repeat their data
+shard's work, as JAX's trainer replicates over an axis it does not shard);
+a single process is the world of one.  Every rank loads the whole global
 batch and keeps its part (:meth:`TrainerBase._device_batch`: dim 0 split
 over ``data`` after a wrap-pad, the bag's token dim over ``seq`` for a net
 that has a sequence-parallel layout, ``omic_means`` whole).  A step seeds
@@ -27,7 +29,9 @@ of the global batch mean (JAX's ``pmean`` over ``data``); evaluation
 gathers the outputs over ``data`` onto every rank, so val selection agrees
 everywhere; rank 0 alone writes checkpoints, metric lines and dumps.
 ``TPU.SP_ATTENTION`` (``gather``/``ring``) picks the sequence-parallel
-layout of TransMIL and UMEML_GAN.  The JAX package's device bag cache has
+layout of TransMIL and UMEML_GAN, under any ``TRAINER.PREC``.  Batch
+statistics (HFB's BatchNorm, the Nyström normaliser) are taken over the
+whole ``data`` axis.  The JAX package's device bag cache has
 no counterpart yet.  Randomness comes from one ``torch.Generator`` on the
 device, seeded from ``cfg.SEED`` plus the rank's data index (each data
 shard draws its own dropout; the ranks of one seq group draw alike).
@@ -55,7 +59,6 @@ from torch import nn
 
 from ..data import DataManager
 from ..evaluation import build_evaluator
-from ..errors import deferred
 from ..losses.survival import build_loss, hazards_to_survival
 from ..models import build_model, survival_num_classes
 from ..ops.attention import set_batch_axis
@@ -255,16 +258,16 @@ class TrainerBase:
             yield
 
     def check_mesh(self, model: nn.Module) -> None:
-        """Refuse what the port does not run on a mesh of more than one
-        rank, then broadcast rank 0's parameters and take the Nyström
-        normaliser over the data axis."""
+        """Refuse what JAX's trainer refuses on a mesh of more than one rank
+        (a net with batch statistics under sequence parallelism), then
+        broadcast rank 0's parameters and take the batch statistics (the
+        Nyström normaliser, HFB's BatchNorm moments) over the data axis."""
         if self.mesh.size == 1:
             return
-        if self.sp_axis is not None and self.cdtype is not None:
-            raise deferred("TRAINER.PREC bf16 under sequence parallelism", 8)
-        if any(n.endswith("running_mean") for n, _ in model.named_buffers()):
-            raise deferred("a net with batch statistics (HFB's BatchNorm) on a mesh of "
-                           "more than one rank", 8)
+        if self.sp_axis is not None and any(n.endswith("running_mean")
+                                            for n, _ in model.named_buffers()):
+            raise ValueError("sequence parallelism is not wired for nets with mutable "
+                             "collections (batch_stats)")
         replicate_module(model, self.mesh)
         set_batch_axis(model, self.mesh.data)
 

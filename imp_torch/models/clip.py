@@ -182,11 +182,21 @@ class ResidualAttentionBlock(nn.Module):
         return x + self.mlp(self.ln_2(x))
 
 
+def patchify(x: torch.Tensor, kernel: torch.Tensor, grid: int) -> torch.Tensor:
+    """``[B, H, W, 3]`` -> ``[B, grid², width]``: the VALID stride = kernel
+    = patch convolution of the HWIO ``kernel`` as one product over each
+    patch's (row, column, channel) values, the kernel's HWIO order."""
+    p, width = kernel.shape[0], kernel.shape[-1]
+    b = x.shape[0]
+    x = x[:, : grid * p, : grid * p].reshape(b, grid, p, grid, p, 3).permute(0, 1, 3, 2, 4, 5)
+    return torch.matmul(x.reshape(b, grid * grid, p * p * 3), kernel.reshape(p * p * 3, width))
+
+
 class VisionTransformer(nn.Module):
     def __init__(self, input_resolution: int = 224, patch_size: int = 32, width: int = 768,
                  layers: int = 12, heads: int = 12, output_dim: int = 512):
         super().__init__()
-        self.patch, self.width = patch_size, width
+        self.patch, self.width, self.heads = patch_size, width, heads
         self.grid = input_resolution // patch_size
         self.conv1_kernel = nn.Parameter(torch.empty(patch_size, patch_size, 3, width))  # HWIO
         self.class_embedding = nn.Parameter(torch.empty(width))
@@ -204,13 +214,8 @@ class VisionTransformer(nn.Module):
             _normal_(t, scale, generator)
 
     def patchify(self, x: torch.Tensor) -> torch.Tensor:
-        """``[B, H, W, 3]`` -> ``[B, grid², width]``: the VALID stride =
-        kernel = patch convolution as one product over each patch's
-        (row, column, channel) values, the kernel's HWIO order."""
-        b, p, g = x.shape[0], self.patch, self.grid
-        x = x[:, : g * p, : g * p].reshape(b, g, p, g, p, 3).permute(0, 1, 3, 2, 4, 5)
-        kernel = self.conv1_kernel.reshape(p * p * 3, self.width)
-        return torch.matmul(x.reshape(b, g * g, p * p * 3), kernel)
+        """``[B, H, W, 3]`` -> ``[B, grid², width]`` (:func:`patchify`)."""
+        return patchify(x, self.conv1_kernel, self.grid)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, H, W, 3]
         x = self.patchify(x)
@@ -228,7 +233,7 @@ class TextTransformer(nn.Module):
     def __init__(self, context_length: int = 77, vocab_size: int = 49408, width: int = 512,
                  heads: int = 8, layers: int = 12, embed_dim: int = 512):
         super().__init__()
-        self.width = width
+        self.width, self.heads = width, heads
         self.token_embedding = nn.Parameter(torch.empty(vocab_size, width))
         self.positional_embedding = nn.Parameter(torch.empty(context_length, width))
         self.resblocks = nn.ModuleList(

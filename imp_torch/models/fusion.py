@@ -32,6 +32,7 @@ from ..ops.blocks import (
     Transformer_P,
     masked_attention_pool,
 )
+from ..parallel.collectives import psum
 
 OMIC_SIZES = (200, 200, 200, 200, 200)
 
@@ -291,11 +292,20 @@ class BatchNorm(nn.Module):
     with that same biased variance (``BatchNorm1d`` takes the unbiased one
     into its running variance, which doubles the increment at two rows);
     an eval forward normalises by the running buffers.  ε = 1e-5.  The
-    buffers ``running_mean``/``running_var`` are part of ``state_dict``."""
+    buffers ``running_mean``/``running_var`` are part of ``state_dict``.
+
+    With a ``batch_axis`` of more than one rank (a mesh's ``data`` axis, set
+    by :func:`imp_torch.ops.attention.set_batch_axis`) a training forward
+    takes the moments of the global batch: Σx and Σx² summed over the axis
+    by one differentiable all-reduce, over every rank's rows (the data
+    shards are equal), as JAX's BatchNorm does under its trainer's
+    data-sharded ``jit``; the running buffers then move alike on every
+    rank."""
 
     def __init__(self, num_features: int, momentum: float = 0.99, eps: float = 1e-5):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.batch_axis = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -316,8 +326,12 @@ class BatchNorm(nn.Module):
         out_dtype = torch.promote_types(x.dtype, self.weight.dtype)
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
-            mean = x.mean(dim=0)
-            var = torch.clamp_min((x * x).mean(dim=0) - mean * mean, 0.0)
+            moments = torch.stack([x.sum(dim=0), (x * x).sum(dim=0)])
+            rows = x.shape[0]
+            if self.batch_axis is not None:
+                moments, rows = psum(moments, self.batch_axis), rows * self.batch_axis.size
+            mean, mean_sq = moments / rows
+            var = torch.clamp_min(mean_sq - mean * mean, 0.0)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_(mean.detach(), alpha=1 - self.momentum)
                 self.running_var.mul_(self.momentum).add_(var.detach(), alpha=1 - self.momentum)

@@ -63,7 +63,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..parallel.collectives import Axis, all_gather, pmax, psum, replicate_from, shift
-from .flash_attention import flash_attention
+from .flash_attention import _wide, flash_attention
 from .pinv import norm_scalar, pinv_newton_schulz
 
 ATTENTION_IMPLS = ("nystrom", "flash")
@@ -285,8 +285,11 @@ def distributed_softmax_attention(q, k, v, key_valid, scale, axis: Axis):
     """Softmax attention of replicated queries q [B, H, L, dh] with the keys
     and values [B, H, S, dh] split over ``axis`` (key_valid [B, S]): local
     scores, a global max (no gradient) and psums of the numerator and
-    denominator.  Returns (out, raw local scores)."""
-    s = torch.einsum("bhld,bhsd->bhls", q * scale, k)
+    denominator.  Returns (out, raw local scores).  The scores, the weights
+    and both sums are float32 for bf16 operands (JAX's
+    ``preferred_element_type=jnp.float32``; a bf16 product is exact in
+    float32) and float64 for float64 ones; the output in q's dtype."""
+    s = torch.einsum("bhld,bhsd->bhls", _wide(q * scale), _wide(k))
     raw = s
     if key_valid is not None:
         s = torch.where(key_valid[:, None, None, :], s, -torch.finfo(s.dtype).max)
@@ -294,7 +297,7 @@ def distributed_softmax_attention(q, k, v, key_valid, scale, axis: Axis):
     p = torch.exp(s - m[..., None])
     if key_valid is not None:
         p = p * key_valid[:, None, None, :]
-    num = psum(torch.einsum("bhls,bhsd->bhld", p, v), axis)
+    num = psum(torch.einsum("bhls,bhsd->bhld", p, _wide(v)), axis)
     den = psum(p.sum(dim=-1), axis)
     return (num / den.clamp_min(1e-30)[..., None]).to(q.dtype), raw
 
@@ -531,11 +534,13 @@ class NystromAttention(_QKVAttention):
 
 
 def set_batch_axis(model: nn.Module, axis: Optional[Axis]) -> None:
-    """Take the pseudo-inverse normaliser of every :class:`NystromAttention`
-    of ``model`` over the ranks of ``axis`` (a mesh's ``data`` axis), so
-    each rank's part of a batch is normalised as the whole batch is."""
+    """Take every statistic over the batch that a module of ``model`` forms
+    (the pseudo-inverse normaliser of a :class:`NystromAttention`, the
+    batch moments of HFB's ``BatchNorm``: the modules with a ``batch_axis``)
+    over the ranks of ``axis`` (a mesh's ``data`` axis), so each rank's part
+    of a batch is normalised as the whole batch is."""
     for m in model.modules():
-        if isinstance(m, NystromAttention):
+        if hasattr(m, "batch_axis"):
             m.batch_axis = axis
 
 

@@ -1,8 +1,8 @@
-"""Data and sequence parallelism over a mesh of processes, one rank per
-card — the torch counterpart of ``imp_tpu/parallel/{mesh,sequence}.py``.
-Tensor and pipeline parallelism of the CLIP towers
-(``imp_tpu/parallel/{tensor,pipeline}.py``) are not ported yet (ROADMAP.md
-§A item 8)."""
+"""Parallelism over a mesh of processes, one rank per card — the torch
+counterpart of ``imp_tpu/parallel/``: the ``(data, seq, model, pipe)``
+mesh (:mod:`.mesh`), the collectives (:mod:`.collectives`), sequence
+parallelism of the bag (:mod:`.sequence`), and tensor and pipeline
+parallelism of the CLIP towers (:mod:`.tensor`, :mod:`.pipeline`)."""
 
 from .collectives import (
     LOCAL,

@@ -3,11 +3,17 @@
 JAX lays one process's devices out as a ``Mesh`` and lets XLA insert the
 collectives.  Here each rank is one process driving one device, started by
 ``torchrun`` (or :func:`imp_torch.parallel.launch.spawn`), and
-:func:`make_mesh` lays the world of ranks out as a ``(data, seq)`` grid,
-row-major over ``TPU.MESH_AXES``, with one process group per row and column
+:func:`make_mesh` lays the world of ranks out as a ``(data, seq, model,
+pipe)`` grid, row-major in that order (an axis the caller does not name has
+size 1), with one process group per line of the grid along each axis
 (:class:`~imp_torch.parallel.collectives.Axis`).  A world of one is the
-single-card path: both axes have size 1 and every collective is the
-identity.
+single-card path: every axis has size 1 and every collective is the
+identity.  The trainers split over ``data`` and ``seq`` only; on a
+``model`` or ``pipe`` axis their ranks repeat their data shard's work, as
+JAX's trainer replicates over an axis it does not shard over.  The CLIP
+towers split their blocks over ``model``
+(:mod:`imp_torch.parallel.tensor`) or ``pipe``
+(:mod:`imp_torch.parallel.pipeline`).
 
 Every rank's loader builds the same full global batch (the loaders are
 seeded and deterministic), and :func:`shard_batch` keeps this rank's part:
@@ -34,10 +40,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..errors import deferred
 from .collectives import Axis, broadcast_tensors
 
-MESH_AXES = ("data", "seq")
+#: the axes of the grid, outermost first (JAX's tools name the same four)
+MESH_AXES = ("data", "seq", "model", "pipe")
 #: how long a collective of torchrun's ranks waits for the others before it fails
 TIMEOUT = datetime.timedelta(minutes=10)
 
@@ -90,11 +96,14 @@ def maybe_initialize_distributed(device: str = "cuda") -> torch.device:
 
 @dataclass
 class Mesh:
-    """The ``(data, seq)`` layout of the world, seen from this rank."""
+    """The ``(data, seq, model, pipe)`` layout of the world, seen from this
+    rank."""
 
     shape: Dict[str, int]
     data: Axis
     seq: Axis
+    model: Axis
+    pipe: Axis
     world: Axis  # every rank: the gradient reduction and the broadcasts
     device: torch.device
 
@@ -121,18 +130,20 @@ def _resolve_shape(shape: Sequence[int], n: int) -> list:
 def make_mesh(axes: Sequence[str] = ("data",), shape: Sequence[int] = (-1,),
               device="cpu") -> Mesh:
     """The mesh of ``axes`` × ``shape`` over the world (``-1`` absorbs the
-    remaining ranks).  Axes other than ``data`` and ``seq`` raise; a missing
-    one has size 1.  Every rank must call it, in the same order as the
-    others (it creates the process groups)."""
+    remaining ranks), laid out row-major in :data:`MESH_AXES` order; a
+    missing axis has size 1.  Every rank must call it, in the same order as
+    the others (it creates the process groups)."""
     axes = tuple(axes)
     for a in axes:
         if a not in MESH_AXES:
-            raise deferred(f"mesh axis {a!r} (tensor/pipeline parallelism)", 8)
+            raise ValueError(f"mesh axis {a!r} not in {MESH_AXES}")
+    if len(set(axes)) != len(axes):
+        raise ValueError(f"mesh axes {axes} name an axis twice")
     if len(axes) != len(shape):
         raise ValueError(f"TPU.MESH_AXES {axes} and TPU.MESH_SHAPE {tuple(shape)} differ in length")
     rank, n = world()
     dims = dict(zip(axes, _resolve_shape(shape, n)))
-    full = [dims.get(a, 1) for a in MESH_AXES]  # (data, seq), row-major
+    full = [dims.get(a, 1) for a in MESH_AXES]  # row-major
     grid = np.arange(n).reshape(full)
     coord = [int(c) for c in np.unravel_index(rank, full)]
 
@@ -148,10 +159,10 @@ def make_mesh(axes: Sequence[str] = ("data",), shape: Sequence[int] = (-1,),
                 mine = Axis(name, full[k], coord[k], group, [int(r) for r in line])
         return mine
 
-    data, seq = axis(0), axis(1)
     everyone = (Axis("world", n, rank, dist.group.WORLD, list(range(n))) if n > 1
                 else Axis("world", ranks=[0]))
-    return Mesh({"data": full[0], "seq": full[1]}, data, seq, everyone, torch.device(device))
+    return Mesh(dict(zip(MESH_AXES, full)), *(axis(k) for k in range(len(MESH_AXES))),
+                everyone, torch.device(device))
 
 
 def host_local_slice(global_batch_size: int, axis: Axis) -> Tuple[int, int]:

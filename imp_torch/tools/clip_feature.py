@@ -4,6 +4,8 @@ counterpart of ``tools/clip_feature.py``.
     python -m imp_torch.tools.clip_feature --src PATCH_ROOT --dst FEATURE_DIR \\
         --checkpoint ViT-B-16.pt --model ViT-B/16 [--batch-size 32] \\
         [--prec fp32|bf16] [--device cuda|cpu]
+    torchrun --standalone --nproc-per-node N -m imp_torch.tools.clip_feature \\
+        ... (--tp T | --pp P [--microbatches M])
 
 Each slide's patches (one directory of images per slide) stream through the
 image tower in static batches on the card: a host thread decodes and
@@ -15,7 +17,15 @@ features go to ``FEATURE_DIR/<slide>.h5`` under ``--key``, through a
 skipped.  ``--random-weights`` runs without a checkpoint.  ``--prec bf16``
 casts the float32 weights and the activations to bf16.  In fp32 the
 products run in full float32 (TF32 off, as ``models.build_module`` sets).
-``--tp``/``--pp`` > 1 (tensor and pipeline parallel towers) are not ported.
+
+``--tp T`` (:mod:`imp_torch.parallel.tensor`) splits a ViT tower's blocks
+Megatron-style over a ``model`` axis of T ranks, ``--pp P``
+(:mod:`imp_torch.parallel.pipeline`) stages them GPipe-style over a
+``pipe`` axis of P ranks with ``--microbatches`` per batch; the remaining
+ranks form the ``data`` axis (dp = world / T or world / P), which splits
+each batch.  Under ``torchrun`` every rank reads the same patches, the
+slides to encode are listed before any is written, and rank 0 alone writes
+each ``.h5``.
 """
 
 from __future__ import annotations
@@ -30,8 +40,6 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
-
-from ..errors import deferred
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -181,8 +189,53 @@ def write_features(out_path: str, key: str, feats: np.ndarray) -> None:
     os.replace(out_path + ".tmp", out_path)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def build_parallel_encoder(model_name: str, tp: int, pp: int, microbatches: int,
+                           device="cuda", prec: str = "fp32", checkpoint: str = ""):
+    """(mesh, encode, params): the ViT tower of ``model_name`` split ``tp``
+    ways over ``model`` or in ``pp`` stages over ``pipe`` (one of them 1),
+    the rest of the world over ``data``, each rank holding its shard
+    (``params``, from ``put_tp_params``/``put_pp_params``) on ``device``;
+    ``encode(x_u8)`` maps the global uint8 batch to its float32 features on
+    every rank.  Raises ``SystemExit`` where JAX's tool does: an RN tower,
+    or a world the parallel size does not divide."""
     from ..models.clip import CLIP_CONFIGS
+    from ..parallel.mesh import make_mesh, world
+    from ..parallel.pipeline import make_pp_encode, put_pp_params, split_vision_params_pp
+    from ..parallel.tensor import make_tp_encode, put_tp_params, split_vision_params_tp
+
+    flag, size = ("--tp", tp) if tp > 1 else ("--pp", pp)
+    if CLIP_CONFIGS[model_name]["vision_patch_size"] is None:
+        raise SystemExit(f"{flag} supports the ViT towers only")
+    ndev = world()[1]
+    if ndev % size:
+        raise SystemExit(f"{flag} {size} does not divide {ndev} devices")
+    dtype = torch.bfloat16 if prec == "bf16" else torch.float32
+    tower, _ = build_encoder(model_name, "cpu", "fp32", checkpoint)
+    state = tower.state_dict()
+
+    def pre(x):
+        return device_normalize(x, dtype)
+
+    if tp > 1:
+        mesh = make_mesh(("data", "model"), (ndev // tp, tp), device)
+        params = put_tp_params(split_vision_params_tp(state, tp), mesh, dtype)
+        run = make_tp_encode(tower, mesh, pre=pre)
+    else:
+        mesh = make_mesh(("data", "pipe"), (ndev // pp, pp), device)
+        params = put_pp_params(split_vision_params_pp(state, pp), mesh, dtype)
+        run = make_pp_encode(tower, mesh, microbatches, pre=pre)
+    del tower, state
+
+    def encode(x_u8: torch.Tensor) -> torch.Tensor:
+        return run(params, x_u8).float()
+
+    return mesh, encode, params
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    import torch.distributed as dist
+
+    from ..parallel import maybe_initialize_distributed
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", required=True, help="root dir of per-slide patch dirs")
@@ -193,35 +246,69 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--batch-size", type=int, default=32)
     ap.add_argument("--prec", default="fp32", choices=["fp32", "bf16"])
     ap.add_argument("--key", default="clip_vit_b32_feature")
-    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel size (not ported)")
-    ap.add_argument("--pp", type=int, default=1, help="pipeline-parallel size (not ported)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel size: split the ViT blocks Megatron-style over a "
+                    "'model' axis of this many ranks (the other ranks form the data axis)")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline-parallel size: stage the ViT blocks GPipe-style over a "
+                    "'pipe' axis of this many ranks (the other ranks form the data axis)")
+    ap.add_argument("--microbatches", type=int, default=4,
+                    help="GPipe microbatches per batch under --pp")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.tp > 1 or args.pp > 1:
-        raise deferred("--tp/--pp (the tensor and pipeline parallel CLIP towers)", 8)
+    if args.tp > 1 and args.pp > 1:
+        raise SystemExit("--tp and --pp are mutually exclusive")
     if not (args.checkpoint or args.random_weights):
         raise SystemExit("Provide --checkpoint or --random-weights")
+    owns_group = not dist.is_initialized()
+    device = maybe_initialize_distributed(args.device)  # torchrun's ranks, else one
+    try:
+        _extract(args, device)
+    finally:
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _extract(args, device) -> None:
+    from ..models.clip import CLIP_CONFIGS
+    from ..parallel import barrier, is_primary
 
     size = CLIP_CONFIGS[args.model]["image_resolution"]
-    _, encode = build_encoder(args.model, args.device, args.prec, args.checkpoint)
+    if args.tp > 1 or args.pp > 1:
+        mesh, encode, _ = build_parallel_encoder(args.model, args.tp, args.pp,
+                                                 args.microbatches, device, args.prec,
+                                                 args.checkpoint)
+        per = mesh.data.size * (args.microbatches if args.pp > 1 else 1)
+        if args.batch_size % per:
+            raise SystemExit(f"--batch-size {args.batch_size} must be divisible by {per} "
+                             f"(the data-axis size {mesh.data.size}"
+                             + (f" x {args.microbatches} microbatches)" if args.pp > 1 else ")"))
+        print(f"{'tensor' if args.tp > 1 else 'pipeline'} parallel: {mesh.shape}")
+    else:
+        _, encode = build_encoder(args.model, device, args.prec, args.checkpoint)
     os.makedirs(args.dst, exist_ok=True)
-    slides = sorted(d for d in os.listdir(args.src) if osp.isdir(osp.join(args.src, d)))
-    total_patches, t_start = 0, time.perf_counter()
-    for slide in slides:
+    todo = []  # listed before any rank writes, so every rank encodes the same slides
+    for slide in sorted(d for d in os.listdir(args.src) if osp.isdir(osp.join(args.src, d))):
         out_path = osp.join(args.dst, slide + ".h5")
         if osp.exists(out_path):
             print(f"skip {slide} (exists)")
-            continue
+        else:
+            todo.append((slide, out_path))
+    barrier()
+    total_patches, t_start = 0, time.perf_counter()
+    for slide, out_path in todo:
         sdir = osp.join(args.src, slide)
         patches = sorted(f for f in os.listdir(sdir) if f.lower().endswith(IMG_EXTS))
         if not patches:
             continue
         feats = encode_slide(encode, lambda p: preprocess(osp.join(sdir, p), size, as_uint8=True),
-                             patches, args.batch_size, size, args.device)
-        write_features(out_path, args.key, feats)
+                             patches, args.batch_size, size, device)
+        if is_primary():
+            write_features(out_path, args.key, feats)
         total_patches += len(patches)
         rate = total_patches / (time.perf_counter() - t_start)
         print(f"{slide}: {len(patches)} patches -> {out_path}  ({rate:.1f} patches/s)")
+    barrier()
 
 
 if __name__ == "__main__":

@@ -22,9 +22,8 @@ card, K1–K3 run the same contract: ``chip_smoke.py``'s
 * ``ring_self_attention`` on an axis of one rank equals flash attention,
   forward and backward; ``mxu_precision="bf16"`` is refused;
 * one process is a 1 x 1 mesh whose batch layout keeps every row and
-  token; what the port does not run on a mesh (tensor/pipeline axes,
-  ``--tp/--pp``, ``TRAINER.PREC bf16`` under sp, batch statistics) raises
-  ROADMAP item 8's deferral.
+  token; what JAX refuses on a mesh (batch statistics under sp, ``--tp``
+  on a world it does not divide) raises here too.
 """
 
 import jax
@@ -181,7 +180,7 @@ def test_one_process_is_the_world_of_one():
     from imp_torch.parallel import make_mesh, shard_batch
 
     mesh = make_mesh(("data", "seq"), (-1, 1))
-    assert mesh.shape == {"data": 1, "seq": 1} and mesh.size == 1
+    assert mesh.shape == {"data": 1, "seq": 1, "model": 1, "pipe": 1} and mesh.size == 1
     batch = {"img": np.ones((3, 8, 2), np.float32), "omic_means": np.zeros(5, np.float32)}
     out = shard_batch(pad_ragged_dim0(batch, mesh.data.size), mesh, SEQ_SHARDED_KEYS,
                       REPLICATED_KEYS)
@@ -193,22 +192,25 @@ def test_one_process_is_the_world_of_one():
 
 
 def test_unported_parallel_options_raise_the_a8_deferral():
-    """Tensor/pipeline axes, ``--tp/--pp``, ``TRAINER.PREC bf16`` under sp
-    and batch statistics on a mesh still name ROADMAP item 8."""
+    """ROADMAP item 8 is done: what still raises is what JAX refuses too.
+    An axis outside ``(data, seq, model, pipe)``; ``--tp`` on a world it
+    does not divide (JAX's ``SystemExit``); a net with batch statistics
+    under sequence parallelism (JAX's assertion in ``imp_tpu/engine/
+    trainer.py``); ``mxu_precision="bf16"`` has its own test above."""
     from types import SimpleNamespace
 
     from imp_torch.engine.trainer import TrainerBase
     from imp_torch.parallel import make_mesh
     from imp_torch.tools import clip_feature
 
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="'tensor' not in"):
         make_mesh(("data", "tensor"), (1, 1))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        clip_feature.main(["--src", "x", "--dst", "y", "--tp", "2"])
+    with pytest.raises(SystemExit, match="--tp 2 does not divide 1 devices"):
+        clip_feature.main(["--src", "x", "--dst", "y", "--random-weights", "--tp", "2",
+                           "--device", "cpu"])
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        clip_feature.main(["--src", "x", "--dst", "y", "--tp", "2", "--pp", "2"])
     on_mesh = SimpleNamespace(mesh=SimpleNamespace(size=2), sp_axis=object(),
                               cdtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TrainerBase.check_mesh(on_mesh, torch.nn.Linear(2, 2))
-    on_mesh.sp_axis, on_mesh.cdtype = None, None
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="mutable collections"):
         TrainerBase.check_mesh(on_mesh, torch.nn.BatchNorm1d(2))

@@ -25,6 +25,12 @@ are compiled once; ragged masks, batch 2.
   train forward at dropout 0) in both layouts: logits, loss and every
   parameter gradient.
 
+* ``TRAINER.PREC bf16`` at sp 2 (``bf16_nets`` of the rank module, through
+  ``amp_call``): TransMIL and UMEML_GAN in both layouts against JAX's bf16
+  sp step (``jax.shard_map`` on a (1, 2) CPU mesh, ``cast_floats`` of the
+  parameters and batch) and against the port's one-rank bf16 step, by
+  ``tests/test_torch_precision.py``'s ``check_bf16``.
+
 Tolerances are JAX's own for its sp tests: rtol 1e-4 / atol 1e-5, and
 2e-4 / 2e-5 where a TransLayer's attention is inside.  A TransLayer
 gradient that misses JAX's is held, with JAX's, to the port's one-rank
@@ -41,11 +47,14 @@ import numpy as np
 import pytest
 import torch
 from flax.traverse_util import flatten_dict
+from jax.sharding import Mesh as JaxMesh
+from jax.sharding import PartitionSpec as PS
 
 import imp_tpu.models.layers as jlayers
 import imp_tpu.models.umeml_gan as jug
 import imp_tpu.ops.attention as jattn
 from imp_tpu.config import get_cfg_default as jax_cfg_default
+from imp_tpu.engine.trainer import cast_floats as jcast
 from imp_tpu.models import build_model as jax_build_model
 from imp_tpu.models.nets import TransMIL_NET as JaxTransMIL
 from imp_tpu.ops.blocks import PPEG as JaxPPEG
@@ -55,6 +64,7 @@ from imp_torch.convert import mil_state_dict, umeml_gan_state_dict
 from imp_torch.parallel.launch import spawn
 
 import test_torch_parallel_ranks as ranks
+from test_torch_precision import check_bf16
 
 FEAT, B, P, D = 32, 2, 6, 32
 GENES = 60
@@ -62,6 +72,12 @@ GROUPS = [list(range(i * 10, (i + 1) * 10)) for i in range(P)]
 SIDE = 12  # bag = 144 = 12²: 6 grid rows a rank at sp 2, 3 at sp 4
 RTOL, ATOL = 1e-4, 1e-5
 LAYER_RTOL, LAYER_ATOL = 2e-4, 2e-5
+MODES = ("gather", "ring")
+
+
+def _sp_mesh():
+    """JAX's (data, seq) = (1, 2) mesh of two CPU devices."""
+    return JaxMesh(np.asarray(jax.devices()[:2]).reshape(1, 2), ("data", "seq"))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -170,6 +186,26 @@ def _references() -> tuple:
         want["translayer"] = [y, mil_state_dict(_flat(g))]
         want["ppeg"] = [py, pt[:, 1:], mil_state_dict(_flat(pg))]
         want["transmil"] = [logits, loss, mil_state_dict(_flat(ng))]
+
+        # JAX's bf16 sp step of TransMIL: cast_floats of the parameters and
+        # the bag, the net under shard_map on the (1, 2) mesh
+        def sp_loss(net_sp, p, img, mask, lw):
+            def body(p, img, mask):
+                out = net_sp.apply(jcast(p, jnp.bfloat16),
+                                   {"img": img.astype(jnp.bfloat16), "img_mask": mask})
+                return out.astype(jnp.float32)
+
+            logits = jax.shard_map(body, mesh=_sp_mesh(),
+                                   in_specs=(PS(), PS(None, "seq", None), PS(None, "seq")),
+                                   out_specs=PS())(p, img, mask)
+            return jnp.sum(logits * lw), logits
+
+        for mode in MODES:
+            net_sp = JaxTransMIL(num_classes=4, path_input_dim=FEAT, seq_axis="seq", sp_mode=mode)
+            (loss, logits), g = jax.jit(jax.value_and_grad(
+                functools.partial(sp_loss, net_sp), has_aux=True))(
+                params, jb["img"], jb["img_mask"], lw)
+            want[f"bf16/transmil/{mode}"] = [logits, loss, mil_state_dict(_flat(g))]
     finally:
         jattn.set_default_attention_impl("nystrom")
 
@@ -212,8 +248,39 @@ def _references() -> tuple:
                              umeml_gan_state_dict(_flat(g))]
         case.update(umeml_sd=umeml_gan_state_dict(_flat(uparams)), uw=_t(uw),
                     ubatch={k_: _t(v) for k_, v in ub.items()})
+
+        # bf16_nets' loss of UMEML_GAN (modularity plus the weighted
+        # logits): JAX's float32 step on one device, then its bf16 sp step
+        # under shard_map on (1, 2)
+        def nokd_loss(p, batch, uw):
+            out = model.apply(p, batch, train=True, replace_ratio=0.0, rngs=drngs)
+            return out["modular_loss"] + jnp.sum(out["logits"] * uw), out["logits"]
+
+        (loss, logits), g = jax.jit(jax.value_and_grad(nokd_loss, has_aux=True))(uparams, jub, uw)
+        want["fp32/umeml_gan"] = [logits, loss, umeml_gan_state_dict(_flat(g))]
+        seq_specs = {k_: (PS(None, "seq", None) if k_ == "img" else
+                          PS(None, "seq") if k_ == "img_mask" else PS()) for k_ in ub}
+
+        def ug_loss(model_sp, p, batch, uw):
+            def body(p, batch):
+                out = model_sp.apply(jcast(p, jnp.bfloat16), jcast(batch, jnp.bfloat16),
+                                     train=True, replace_ratio=0.0, rngs=drngs)
+                return out["logits"].astype(jnp.float32), out["modular_loss"].astype(jnp.float32)
+
+            logits, modular = jax.shard_map(body, mesh=_sp_mesh(), in_specs=(PS(), seq_specs),
+                                            out_specs=(PS(), PS()))(p, batch)
+            return modular + jnp.sum(logits * uw), logits
+
+        for mode in MODES:
+            model_sp = jax_build_model("umeml_gan", cfg=_jax_umeml_cfg(), num_classes=4,
+                                       gene_group_indexes=GROUPS, sp_axis="seq", sp_mode=mode)
+            (loss, logits), g = jax.jit(jax.value_and_grad(
+                functools.partial(ug_loss, model_sp), has_aux=True))(uparams, jub, uw)
+            want[f"bf16/umeml_gan/{mode}"] = [logits, loss, umeml_gan_state_dict(_flat(g))]
     finally:
         mp.undo()
+    # the port's one-rank bf16 step of the same nets
+    want.update({"bf16/" + k: v for k, v in ranks.bf16_nets(case).items()})
     return case, want
 
 
@@ -328,3 +395,33 @@ def test_umeml_gan_matches_single_device(results, sp, mode):
     assert set(grads) == set(wgrads)
     for k, g in grads.items():
         _close(g, wgrads[k], LAYER_RTOL, LAYER_ATOL, k)
+
+
+@pytest.mark.parametrize("net", ["transmil", "umeml_gan"])
+@pytest.mark.parametrize("mode", MODES)
+def test_bf16_step_matches_jax_bf16_sp_and_one_rank(results, net, mode):
+    """TRAINER.PREC bf16 under sp 2 (``amp_call``): the logits, the loss and
+    every parameter gradient against JAX's bf16 sp step and against the
+    port's one-rank bf16 step, each by ``check_bf16``
+    (``tests/test_torch_precision.py``: within BF16_TOL = 2e-2 relative L2
+    of the bf16 reference, or no farther from JAX's float32 step than twice
+    the reference's own distance from it; the logits must also sit away
+    from float32).  bf16 resolves UMEML_GAN's prototype gradients no better
+    than that in either framework: the modularity's max over prototypes
+    switches for near-tied pairs, and ``p_proto`` moves by 10–20 % between
+    two summation orders of one bf16 forward (one rank vs sp 2, JAX vs the
+    port).  Its distillation term is left out of the loss: it is T² = 25
+    times a difference of two bf16 log-softmaxes, so its bf16 value moves
+    by ~40 % between the same two orders."""
+    got, want = results
+    logits, loss, grads = got[0][2][f"bf16/{net}/{mode}"]
+    assert logits.dtype == torch.float32
+    wlogits32, wloss32, wgrads32 = want["transmil" if net == "transmil" else "fp32/umeml_gan"]
+    for ref in (f"bf16/{net}/{mode}", f"bf16/{net}/one"):
+        wlogits, wloss, wgrads = (np.asarray(x) if not isinstance(x, dict) else x
+                                  for x in want[ref])
+        check_bf16(f"logits vs {ref}", logits, wlogits, wlogits32, computed_in_bf16=True)
+        check_bf16(f"loss vs {ref}", loss, wloss, wloss32)
+        assert set(grads) == set(wgrads)
+        for k, g in grads.items():
+            check_bf16(f"{k} vs {ref}", g, np.asarray(wgrads[k]), np.asarray(wgrads32[k]))
