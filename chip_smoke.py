@@ -35,12 +35,15 @@ Phases, each printing one JSON line (the run fails on the first error):
 3. ``serve_flash`` — the serving path: UMEML_GAN at the full width of
    ``configs/Survival/UMEML_GAN.yaml`` (hidden 256, bags padded to
    10 000 x 512, 1 000 genes in 6 groups, exported batch 8) with
-   ``TPU.ATTENTION=flash``, exported, loaded, run through
-   ``ServingModel.predict_many`` and the HTTP server, with the launch
-   counts read around that run; then the same model through the plain
-   attention on the card, and the latency of ``predict`` at batch 8.
+   ``TPU.ATTENTION=flash``, exported (``export_model``: a ``torch.export``
+   program, K1 as the operator ``imp_torch::flash_fwd``), loaded, run
+   through ``ServingModel.predict_many`` and the HTTP server, with the
+   launch counts read around that run; then the module rebuilt from the
+   artifact (``rebuild_model``) through the plain attention on the card,
+   and the latency of ``predict`` at batch 8.
 4. ``serve_nystrom`` — the same at the default ``TPU.ATTENTION``, which
-   launches no kernel; its logits are held against a CPU run.
+   launches no kernel; its logits are held against the same program moved
+   to the CPU (``move_to_device_pass``), which launches nothing.
 5. ``train``   — the training path: ``python -m imp_torch.tools.train``
    (in process) with MBTRAIN at the full width of ``UMEML_GAN.yaml``,
    batch 2, on 16 synthetic slides of 1 ... 10 000 patches, for 3 epochs
@@ -219,6 +222,19 @@ Phases, each printing one JSON line (the run fails on the first error):
    images of their float64 CPU replay, bf16 cosine to fp32 at least
    CLIP_BF16_COS; images/s, each rank's block-weight bytes and peak memory
    beside the one-rank tower's.
+31. ``serve_export`` — serving from a checkpoint through the exported
+   program: ``python -m imp_torch.tools.export_model`` (in process) with
+   the trainer route and ``--check`` on phase 8's UMEML_GAN checkpoint
+   (flash, its first test batch of 8 from a 40-slide tree, bag 10 000 x
+   512) and phase 7's TransMIL checkpoint (flash, 10 001 tokens, batch 1):
+   the served program within 1e-5 of the trainer's eval forward, K1 6 and
+   2 times per served forward, the latency of ``predict`` at batch 8; a
+   UMEML_GAN built with the fused pseudo-inverse at ``auto`` through
+   ``export_model``: K6 once per Nyström layer per forward
+   (``imp_torch::pinv_fwd``), within 1e-5 of the rebuilt module, and no
+   launch with the program moved to the CPU; a Classification UMEML_GAN
+   artifact over the HTTP host (a ragged request answered, ``risk``
+   refused with 400).  It runs after phase 8.
 Phases 27, 29, 28 and 30 run after phase 25, in that order.  ``python3
 chip_smoke.py --sp-only`` on a host of two cards or more (four H100s joined
 by NVLink) builds the kernels and runs ``train_sp`` and ``clip_tp_pp`` over
@@ -258,8 +274,9 @@ dk and dv together through the wrapper, the plain backward and SDPA's
 backward, with the name of SDPA's backward kernel from the trace; K6 and K7 with a ``chain`` object, the times of the unrolled
 products they replace), the card's name and power limit from
 ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Weights are
-random, from a seed.  Without a CUDA card the script exits 2 and prints no
-result.
+random, from a seed.  K1 and K6 also carry a ``program`` object: their
+launches per served forward through phase 31's programs.  Without a CUDA
+card the script exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -782,6 +799,36 @@ def flash_bwd_bounds(b, h, n, d, valid, dtype: str = "fp32") -> dict:
                                        inputs + 4 * b * h * n * d, dtype),
         "flash_bwd_dkv": flash_bound_ms("flash_bwd_dkv", pairs, d,
                                         inputs + 8 * b * h * n * d, dtype),
+    }
+
+
+def partial_bounds(b, h, nq, d, chunks, chunk_valid, dtype: str = "fp32") -> dict:
+    """The least time of K1 and of K2 then K3 on each hop of the ring
+    (:func:`flash_bound_ms`), from the chunk shapes: every query against
+    one key chunk; pairs count the chunk's valid keys; K1 reads q, the
+    chunk's k, v and bias once and writes O and lse once; K2 and K3 each
+    read q, k, v, dO, bias, lse and delta once, K2 writes dq, K3 dk and dv.
+    A chunk with no valid key needs no pair and no read of its k and v: its
+    merge weight in the ring is 0 and its dk, dv are 0.  A ring's bound is
+    the sum of its hops' (they run one after another); its pairs are those
+    of one call over the whole mask."""
+    op = 2 if dtype == "bf16" else 4
+    fwd, bwd = [], []
+    for nk, valid in zip(chunks, chunk_valid):
+        pairs = h * nq * b * valid
+        q_bytes, kv_bytes = op * b * h * nq * d, 2 * op * b * h * nk * d * (valid > 0)
+        fwd.append(flash_bound_ms("flash_fwd", pairs, d, q_bytes + kv_bytes + 4 * b * nk
+                                  + 4 * b * h * nq * (d + 1), dtype))
+        inputs = q_bytes + kv_bytes + 4 * b * nk + 4 * b * h * nq * (d + 2)
+        dq = flash_bound_ms("flash_bwd_dq", pairs, d, inputs + 4 * b * h * nq * d, dtype)
+        dkv = flash_bound_ms("flash_bwd_dkv", pairs, d, inputs + 8 * b * h * nk * d, dtype)
+        bwd.append((dq[0] + dkv[0], dq[1] if dq[1] == dkv[1] else "operations"))
+    return {
+        "fwd_hop_ms": [ms for ms, _ in fwd], "fwd_ring_ms": sum(ms for ms, _ in fwd),
+        "fwd_by": sorted({by for _, by in fwd}),
+        "bwd_hop_ms": [ms for ms, _ in bwd], "bwd_ring_ms": sum(ms for ms, _ in bwd),
+        "bwd_by": sorted({by for _, by in bwd}),
+        "covers": "K1 per hop; K2 and K3 together per hop",
     }
 
 
@@ -1353,9 +1400,10 @@ def http_checks(artifact, device, req_slides, served):
             "http_vs_direct_err": http_err, "risk_err": risk_err}
 
 
-def latency(served, rng, num_genes, reps: int = 30):
+def latency(served, rng, num_genes, reps: int = 30, breakdown: bool = True):
     """Host-clock latency of ``predict`` on full batches of 8 slides (pad,
-    copy to the card, forward, copy back)."""
+    copy to the card, forward, copy back), and where its time goes unless
+    ``breakdown`` is off."""
     import torch
 
     batch = make_slides(rng, SLIDE_LENGTHS[:SERVE_BATCH], served.manifest["feat_dim"], num_genes)
@@ -1368,6 +1416,14 @@ def latency(served, rng, num_genes, reps: int = 30):
         served.predict(batch)  # returns numpy: the device work is done
         times.append(time.perf_counter() - t0)
     t = np.asarray(times) * 1e3
+    percentiles = {
+        "predict_p50_ms": float(np.percentile(t, 50)),
+        "predict_p99_ms": float(np.percentile(t, 99)),
+        "slides_per_s": SERVE_BATCH * reps / float(t.sum() / 1e3),
+        "reps": reps,
+    }
+    if not breakdown:
+        return percentiles
 
     # where one predict's time goes: host padding, the copy to the card, the
     # forward on the card (events), and how much of it keeps the card busy
@@ -1382,20 +1438,19 @@ def latency(served, rng, num_genes, reps: int = 30):
         "insample_without_omic": np.zeros((SERVE_BATCH, num_genes), np.int32),
         "omic_means": served._aux["omic_means"],
     }
+    host = {k: host.get(k, np.zeros(v["shape"], v["dtype"]))
+            for k, v in served.manifest["batch_keys"].items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tb = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
     torch.cuda.synchronize()
     h2d_ms = (time.perf_counter() - t0) * 1e3
-    with torch.no_grad():
-        forward_ms = cuda_ms(lambda: served.model(tb), iters=10)
-        forward_busy = device_busy_ms(lambda: served.model(tb))
+    forward_ms = cuda_ms(lambda: served.call(tb), iters=10)
+    forward_busy = device_busy_ms(lambda: served.call(tb))
     predict_busy = device_busy_ms(lambda: served.predict(batch), iters=3)
-    p50 = float(np.percentile(t, 50))
+    p50 = percentiles["predict_p50_ms"]
     return {
-        "predict_p50_ms": p50,
-        "predict_p99_ms": float(np.percentile(t, 99)),
-        "slides_per_s": SERVE_BATCH * reps / float(t.sum() / 1e3),
+        **percentiles,
         "breakdown": {
             "pad_ms": float(np.median(pads)) * 1e3,
             "h2d_ms": h2d_ms,
@@ -1413,7 +1468,7 @@ def phase_serve(attention: str, card: str, tmp: str):
     from imp_torch import kernels
     from imp_torch.models import build_model, survival_num_classes
     from imp_torch.serving import (
-        even_gene_groups, export_model, load_model, mbtrain_batch_template,
+        even_gene_groups, export_model, load_model, mbtrain_batch_template, rebuild_model,
     )
 
     cfg = flagship_cfg(attention)
@@ -1427,8 +1482,10 @@ def phase_serve(attention: str, card: str, tmp: str):
     rng = np.random.default_rng(SEED)
     omic_means = rng.lognormal(size=num_genes).astype(np.float32)
     artifact = os.path.join(tmp, f"umeml_gan_{attention}")
+    t0 = time.perf_counter()
     export_model(model, cfg, mbtrain_batch_template(cfg, SERVE_BATCH, num_genes),
                  artifact, omic_means)
+    export_s = time.perf_counter() - t0
     del model
     served = load_model(artifact, device=DEVICE)
     feat_dim = cfg.DATASET.PATH.DIM
@@ -1446,7 +1503,8 @@ def phase_serve(attention: str, card: str, tmp: str):
     torch.cuda.synchronize()
     counts = kernels.launches()
     forwards = -(-len(SLIDE_LENGTHS) // SERVE_BATCH) + 2  # predict_many + HTTP + its check
-    expect = 6 * forwards if served.model.attention == "flash" else 0
+    flash = served.manifest["attention"] == "flash"
+    expect = 6 * forwards if flash else 0
     require(counts["flash_fwd"] == expect,
             f"flash_fwd launches {counts['flash_fwd']} != {expect} ({attention})")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1459,6 +1517,7 @@ def phase_serve(attention: str, card: str, tmp: str):
     require(all(np.isfinite(v).all() for v in out.values()), "non-finite serving output")
 
     # ---- the same model through the reference path -------------------------
+    model = rebuild_model(artifact, DEVICE)  # the live module: params.pt + config
     full = {k: v[:SERVE_BATCH] for k, v in slides.items()}
     img, mask = served._pad_bags(full["img"])
     tb = {
@@ -1468,10 +1527,10 @@ def phase_serve(attention: str, card: str, tmp: str):
     }
     tb = {k: torch.from_numpy(v).to(DEVICE) for k, v in tb.items()}
     check = {}
-    if served.model.attention == "flash":
-        got, pairs = pairs_of(served.model, tb)
+    if flash:
+        got, pairs = pairs_of(model, tb)
         with plain_attention():
-            ref, ref_pairs = pairs_of(served.model, tb)
+            ref, ref_pairs = pairs_of(model, tb)
         same = (pairs == ref_pairs).all(dim=1)
         same = (same[:SERVE_BATCH] & same[SERVE_BATCH:]).cpu().numpy()  # both passes
         require(same.any(), "kernel vs plain: every slide paired its tokens differently")
@@ -1482,27 +1541,243 @@ def phase_serve(attention: str, card: str, tmp: str):
                  "pairing_mismatch_rows": int((~same).sum()), "tol": SERVE_TOL}
         require(err <= SERVE_TOL, f"kernel vs plain serving logits: {check}")
     else:
+        # the program moved to the CPU (torch.export.passes.move_to_device_pass)
         cpu = load_model(artifact, device="cpu")
+        kernels.reset_launches()
+        ref = cpu.predict(full)
+        cpu_launches = sum(kernels.launches().values())
         with torch.no_grad():
-            ref = cpu.model({k: v.cpu() for k, v in tb.items()})
-            got = served.model(tb)
-        err = float((got["logits"].cpu() - ref["logits"]).abs().max())
-        check = {"vs": "the same artifact on the CPU", "max_abs_err_logits": err,
-                 "tol": CROSS_DEVICE_TOL}
-        require(err <= CROSS_DEVICE_TOL, f"card vs CPU serving logits: {check}")
+            got = model(tb)
+        err = float(np.abs(got["logits"].cpu().numpy() - ref["logits"]).max())
+        check = {"vs": "the same artifact's program moved to the CPU", "max_abs_err_logits": err,
+                 "tol": CROSS_DEVICE_TOL, "cpu_launches": cpu_launches}
+        require(err <= CROSS_DEVICE_TOL and cpu_launches == 0,
+                f"card vs CPU serving logits: {check}")
     direct_err = float(np.abs(got["logits"].cpu().numpy() - logits[:SERVE_BATCH]).max())
-    require(direct_err <= 1e-5, f"predict_many vs the model's own forward: {direct_err}")
+    require(direct_err <= 1e-5, f"predict_many vs the rebuilt module's forward: {direct_err}")
 
     row = {
-        "phase": f"serve_{served.model.attention}", "attention_cfg": attention,
+        "phase": f"serve_{served.manifest['attention']}", "attention_cfg": attention,
         "card": card, "slides": len(SLIDE_LENGTHS), "bag_lengths": list(SLIDE_LENGTHS),
         "batch": SERVE_BATCH, "bag_pad": served.bag_pad, "num_genes": num_genes,
         "hidden": cfg.MODEL.HIDDEN_DIM, "launches": counts,
+        "export_s": export_s, "program_bytes": os.path.getsize(os.path.join(artifact, "model.pt2")),
         "predict_many_s": many_s, "peak_device_gib": peak_gib,
         "http": http, "check": check, **latency(served, rng, num_genes),
     }
     emit(row)
     return row, counts
+
+
+#: slides of the serving tree: its test fold 1 holds 8, the exported batch
+SERVE_TREE_SLIDES = 40
+#: the served program against the trainer's eval forward (``--check``)
+EXPORT_TOL = 1e-5
+
+
+def export_cli(argv) -> tuple:
+    """``python -m imp_torch.tools.export_model argv`` in process, on the
+    seeded bags: (manifest with ``check_max_abs_diff``, seconds, log)."""
+    from imp_torch.tools.export_model import run
+
+    console = io.StringIO()
+    t0 = time.perf_counter()
+    with seeded_bags(), contextlib.redirect_stdout(console):
+        manifest = run(argv)
+    return manifest, time.perf_counter() - t0, console.getvalue()
+
+
+def launches_per_forward(served, batch) -> dict:
+    """The kernel launches of one ``predict`` of a batch at the exported
+    size (one forward of the program); the counts are set to 0 just before
+    and read just after."""
+    import torch
+
+    from imp_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    served.predict(batch)
+    torch.cuda.synchronize()
+    return only_launched(kernels.launches())
+
+
+def classification_http(artifact, rng, num_genes) -> dict:
+    """A Classification artifact over the HTTP host: /health reports its
+    kind, a ragged /predict answers the direct predict's outputs, ``risk``
+    is refused with 400."""
+    from imp_torch.serving import make_http_server
+
+    server = make_http_server(artifact, port=0, device=DEVICE)
+    served = server.serving_model
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    slides = make_slides(rng, (300, 1, 57), served.manifest["feat_dim"], num_genes)
+    body = {"img": [b.tolist() for b in slides["img"]], "mol": slides["mol"].tolist()}
+
+    def post(payload):
+        req = urllib.request.Request(base + "/predict", data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    try:
+        with urllib.request.urlopen(base + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        status, resp = post({"batch": body})
+        risk_status, risk_resp = post({"batch": body, "risk": True})
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    want = served.predict_many({"img": slides["img"], "mol": slides["mol"]})
+    err = max(float(np.abs(np.asarray(resp["outputs"][k]) - want[k]).max()) for k in want)
+    out = {"health_kind": health["kind"], "task": health["task"], "predict": status,
+           "batch_size": resp.get("batch_size"), "logits_shape": list(want["logits"].shape),
+           "http_vs_direct_err": err, "risk": risk_status, "risk_error": risk_resp.get("error")}
+    require(health["kind"] == "mbtrain" and health["task"] == "Classification", out)
+    require(status == 200 and resp["batch_size"] == 3 and err <= 1e-5, out)
+    require(want["logits"].shape == (3, 6), out)
+    require(risk_status == 400 and "only defined for survival" in risk_resp["error"], out)
+    return out
+
+
+def phase_serve_export(card: str, tmp: str, flash_out: str, transmil_out: str):
+    """Serving from a checkpoint through the exported program: the export
+    CLI's trainer route with ``--check`` on ``train_flash``'s UMEML_GAN
+    checkpoint (batch 8) and ``train_transmil``'s TransMIL checkpoint
+    (batch 1, 10 001 tokens), both under flash; a UMEML_GAN built with the
+    fused pseudo-inverse at ``auto`` through ``export_model``; a
+    Classification UMEML_GAN over the HTTP host.  K1 and K6 run inside the
+    programs as ``imp_torch::flash_fwd`` and ``imp_torch::pinv_fwd``."""
+    import torch
+
+    from imp_torch import kernels
+    from imp_torch.models import build_model, survival_num_classes
+    from imp_torch.serving import (
+        even_gene_groups, export_model, load_model, mbtrain_batch_template, rebuild_model,
+    )
+
+    root = make_train_tree(os.path.join(tmp, "serve_tree"), SERVE_TREE_SLIDES)
+    rng = np.random.default_rng(SEED + 1)
+    num_genes, feat = FLAGSHIP["DATASET.OMIC.DIM"], FLAGSHIP["DATASET.PATH.DIM"]
+    row = {"phase": "serve_export", "card": card, "entry": "python -m imp_torch.tools.export_model"}
+    t0, seconds_by = time.perf_counter(), {}
+
+    def lap(name):
+        nonlocal t0
+        seconds_by[name], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    # ---- UMEML_GAN under flash, from train_flash's checkpoint ---------------
+    art = os.path.join(tmp, "export_umeml_gan_flash")
+    argv = ["--root", root, "--seed", "1", "--trainer", "MBTRAIN", "--model-dir", flash_out,
+            "--export-dir", art, "--device", DEVICE, "--check"] + flagship_opts(**{
+                "TPU.ATTENTION": "flash", "DATALOADER.TEST.BATCH_SIZE": SERVE_BATCH})
+    manifest, seconds, log = export_cli(argv)
+    served = load_model(art, device=DEVICE)
+    batch = make_slides(rng, SLIDE_LENGTHS[:SERVE_BATCH], feat, num_genes)
+    per_forward = launches_per_forward(served, batch)
+    row["umeml_gan"] = {
+        "checkpoint_of": "train_flash", "kind": manifest["kind"],
+        "batch": manifest["batch_size"], "bag_pad": manifest["bag_pad"],
+        "attention": manifest["attention"], "export_s": seconds,
+        "check_max_abs_diff": manifest["check_max_abs_diff"], "check_tol": EXPORT_TOL,
+        "launches_per_forward": per_forward,
+        "program_bytes": os.path.getsize(os.path.join(art, "model.pt2")),
+        **latency(served, rng, num_genes, reps=20, breakdown=False),
+    }
+    require(manifest["batch_size"] == SERVE_BATCH and manifest["kind"] == "mbtrain"
+            and manifest["bag_pad"] == FLAGSHIP["DATASET.BAG_PAD"], row["umeml_gan"])
+    require(manifest["check_max_abs_diff"] <= EXPORT_TOL and "check OK" in log, row["umeml_gan"])
+    require(per_forward == {"flash_fwd": 6}, f"K1 per served UMEML_GAN forward: {per_forward}")
+    del served
+    lap("umeml_gan")
+
+    # ---- TransMIL under flash, from train_transmil's checkpoint -------------
+    art = os.path.join(tmp, "export_transmil_flash")
+    argv = ["--root", root, "--seed", "1", "--trainer", "TransMIL", "--config-file",
+            TRANSMIL_YAML, "--model-dir", transmil_out, "--export-dir", art, "--device", DEVICE,
+            "--check", "TPU.ATTENTION", "flash"]
+    manifest, seconds, log = export_cli(argv)
+    served = load_model(art, device=DEVICE)
+    bag = rng.standard_normal((served.bag_pad, feat), dtype=np.float32)  # a full slide
+    per_forward = launches_per_forward(served, {"img": [bag]})
+    row["transmil"] = {
+        "checkpoint_of": "train_transmil", "kind": manifest["kind"],
+        "batch": manifest["batch_size"], "bag_pad": manifest["bag_pad"],
+        "attention": manifest["attention"], "export_s": seconds,
+        "check_max_abs_diff": manifest["check_max_abs_diff"], "check_tol": EXPORT_TOL,
+        "launches_per_forward": per_forward,
+    }
+    require(manifest["kind"] == "generic" and manifest["outputs"] == ["logits"], row["transmil"])
+    require(manifest["check_max_abs_diff"] <= EXPORT_TOL and "check OK" in log, row["transmil"])
+    require(per_forward == {"flash_fwd": 2}, f"K1 per served TransMIL forward: {per_forward}")
+    del served
+    lap("transmil")
+
+    # ---- UMEML_GAN with the fused pseudo-inverse, through export_model ------
+    cfg = flagship_cfg("auto")
+    groups = even_gene_groups(num_genes, cfg.MODEL.UMEML.PROTOTYPES)
+    model = build_model(cfg.MODEL.NAME, cfg=cfg, num_classes=survival_num_classes("Survival", 0),
+                        gene_group_indexes=groups, device=DEVICE, pinv_mode="fused",
+                        generator=torch.Generator().manual_seed(SEED))
+    fused = fused_pinvs(model)
+    art = os.path.join(tmp, "export_umeml_gan_fused")
+    t0 = time.perf_counter()
+    manifest = export_model(model, cfg, mbtrain_batch_template(cfg, SERVE_BATCH, num_genes), art,
+                            rng.lognormal(size=num_genes).astype(np.float32))
+    seconds = time.perf_counter() - t0
+    del model
+    served = load_model(art, device=DEVICE)
+    per_forward = launches_per_forward(served, batch)
+    got = served.predict(batch)
+    ref_model = rebuild_model(art, DEVICE)
+    img, mask = served._pad_bags(batch["img"])
+    host = {"img": img, "img_mask": mask, "mol": batch["mol"],
+            "without_omic": batch["without_omic"],
+            "insample_without_omic": np.zeros((SERVE_BATCH, num_genes), np.int32),
+            "omic_means": served._aux["omic_means"]}
+    with torch.no_grad():
+        want = ref_model({k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()})
+    err = max(float(np.abs(got[k] - want[k].cpu().numpy()).max()) for k in got)
+    lap("umeml_gan_fused")
+    cpu = load_model(art, device="cpu")  # the program moved to the CPU: no launch
+    kernels.reset_launches()
+    cpu_out = cpu.predict(batch)  # the same batch: the normaliser spans it
+    cpu_launches = sum(kernels.launches().values())
+    cpu_err = float(np.abs(cpu_out["logits"] - got["logits"]).max())
+    row["umeml_gan_fused"] = {
+        "entry": "imp_torch.serving.export_model", "pinv_mode": manifest["pinv_mode"],
+        "fused_pinvs": fused, "export_s": seconds, "launches_per_forward": per_forward,
+        "vs_rebuilt_max_abs_diff": err, "tol": EXPORT_TOL,
+        "cpu": {"launches": cpu_launches, "max_abs_err_logits": cpu_err,
+                "tol": CROSS_DEVICE_TOL},
+    }
+    require(manifest["pinv_mode"] == "fused" and fused > 0, row["umeml_gan_fused"])
+    require(per_forward == {"pinv_fwd": fused}, f"K6 per served forward: {per_forward}")
+    require(err <= EXPORT_TOL, f"fused program vs the rebuilt module: {err}")
+    require(cpu_launches == 0 and cpu_err <= CROSS_DEVICE_TOL, row["umeml_gan_fused"])
+    del served, cpu, ref_model
+    lap("umeml_gan_fused_cpu")
+
+    # ---- a Classification artifact over HTTP -------------------------------
+    cfg = yaml_cfg(task_yaml("Classification", "UMEML_GAN"))
+    art = os.path.join(tmp, "export_classification")
+    model = build_model(cfg.MODEL.NAME, cfg=cfg, num_classes=6,
+                        gene_group_indexes=even_gene_groups(num_genes, cfg.MODEL.UMEML.PROTOTYPES),
+                        device=DEVICE, generator=torch.Generator().manual_seed(SEED))
+    export_model(model, cfg, mbtrain_batch_template(cfg, 2, num_genes), art,
+                 np.zeros(num_genes, np.float32))
+    del model
+    row["classification_http"] = classification_http(art, rng, num_genes)
+    lap("classification_http")
+    row["seconds"] = seconds_by
+    emit(row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1518,13 +1793,13 @@ STEP_TOL = 1e-4  # kernel vs plain modularity inside one train step, fp32
 STEP_TIMED = 12  # timed steps at batch 8, after warm-up
 
 
-def make_train_tree(root: str) -> str:
+def make_train_tree(root: str, num_slides: int = len(TRAIN_LENGTHS)) -> str:
     """The synthetic tree's CSVs (labels, 1 000 genes in six 166-gene
     signature groups, like the even fallback); bags come from
-    :func:`seeded_bags`."""
+    :func:`seeded_bags` (slide i has ``TRAIN_LENGTHS[i % 16]`` patches)."""
     from imp_torch.data import synthetic
 
-    return synthetic.materialize(root, num_slides=len(TRAIN_LENGTHS), bag_min=1, bag_max=1,
+    return synthetic.materialize(root, num_slides=num_slides, bag_min=1, bag_max=1,
                                  feat_dim=512, num_genes=1000, group_size=166, seed=SEED,
                                  bags=False)
 
@@ -1542,7 +1817,8 @@ def seeded_bags():
     def seeded_bag(self, idx):
         i = int(self.data_source[idx].patientid.split("-")[1])
         rng = np.random.default_rng(SEED + i)
-        return rng.standard_normal((TRAIN_LENGTHS[i], self.cfg.DATASET.PATH.DIM), dtype=np.float32)
+        n = TRAIN_LENGTHS[i % len(TRAIN_LENGTHS)]
+        return rng.standard_normal((n, self.cfg.DATASET.PATH.DIM), dtype=np.float32)
 
     reader = SlideDataset._load_bag
     SlideDataset._load_bag = seeded_bag
@@ -3900,6 +4176,8 @@ def phase_flash_partial(card: str, prec: str = "fp32"):
         "chunk_valid_keys": [int(c[2].sum()) for c in chunks], **errs, "max_abs_err": abs_err,
         "tol_rel": KERNEL_TOL, "finite": finite, "empty_chunk_dk_dv_zero": empty_chunk_zero,
         "launches": launches, "launches_per_hop": {kn: 1 for kn in FLASH_PRODUCTS}, **times,
+        "bound": partial_bounds(b, h, n, d, [z - a for a, z in spans],
+                                [int(c[2][0].sum()) for c in chunks], prec),
     }
     emit(row)
     require(finite and empty_chunk_zero and max(errs.values()) <= KERNEL_TOL,
@@ -4912,6 +5190,8 @@ def main() -> int:
                 attention="flash")
         clocked("train_step_flash", phase_train_step, card, root,
                 os.path.join(tmp, "train_step_flash"), attention="flash")
+        export_row = clocked("serve_export", phase_serve_export, card, tmp,
+                             os.path.join(tmp, "train_flash"), os.path.join(tmp, "transmil"))
         clocked("train_classification", phase_train_classification, card, root,
                 os.path.join(tmp, "classification"))
         clocked("train_step_tasks", phase_train_step_tasks, card, root,
@@ -4962,6 +5242,14 @@ def main() -> int:
     def per_forward(key):
         return sum(krows[s][key] * n for s, n in FLASH_PER_FORWARD.items())
 
+    def program_entry(name):
+        """The kernel as the registered operator that the exported programs
+        of serve_export call: its launches per served forward."""
+        models = ("umeml_gan", "transmil") if name == "flash_fwd" else ("umeml_gan_fused",)
+        per = {m: export_row[m]["launches_per_forward"].get(name, 0) for m in models}
+        return {"operator": f"imp_torch::{name}", "launches_per_served_forward": per,
+                "launches": sum(per.values())}
+
     def bf16_entry(name):
         """The kernel's bf16 entry: its launches in the bf16 CLI runs
         (UMEML_GAN and CMTA) and its times at TransMIL's bag."""
@@ -4994,6 +5282,8 @@ def main() -> int:
             "launches": row["launches"][name],
             "hop_ms": row[f"{side}_hop_ms"],
             "ring_ms": row[f"{side}_ring_ms"],
+            "hop_bound_ms": row["bound"][f"{side}_hop_ms"],
+            "ring_bound_ms": row["bound"][f"{side}_ring_ms"],
             "one_call_ms": row[f"{side}_one_call_ms"],
             **({"covers": "K2 and K3 together (one flash_attention_bwd call a hop)"}
                if side == "bwd" else {}),
@@ -5046,6 +5336,7 @@ def main() -> int:
             "share_of_bound": main["share_of_bound"], "same_bits_twice": main["same_bits_twice"],
             "cluster": main["cluster"], "dynamic_smem_bytes": main["dynamic_smem_bytes"],
             "ptxas": main["ptxas"], "cmta": cmta_entry(name),
+            **({"program": program_entry(name)} if name == "pinv_fwd" else {}),
         }
 
     emit({"kernels": [
@@ -5061,6 +5352,7 @@ def main() -> int:
             "library_ms": per_forward("library_ms"),
             "cmta": cmta_entry("flash_fwd"), "bf16": bf16_entry("flash_fwd"),
             "partial": partial_entry("flash_fwd"), "partial_bf16": partial_bf16_entry("flash_fwd"),
+            "program": program_entry("flash_fwd"),
         },
         *(flash_bwd_entry(n) for n in ("flash_bwd_dq", "flash_bwd_dkv")),
         modularity_entry("modularity_deg"),

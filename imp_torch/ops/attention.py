@@ -193,18 +193,34 @@ def _onednn_off():
         torch.backends.mkldnn.enabled = saved
 
 
+@torch.library.custom_op("imp_torch::token_conv_cpu", mutates_args=())
+def token_conv_cpu(v: torch.Tensor, w: torch.Tensor, same: bool) -> torch.Tensor:
+    """:func:`_token_conv` with oneDNN off, as a registered operator: an
+    exported program (``torch.export``) calls it as it is, where a traced
+    ``conv2d`` would run with the process's oneDNN setting."""
+    with _onednn_off():
+        return _token_conv(v, w, same)
+
+
+@token_conv_cpu.register_fake
+def _(v, w, same):
+    b, h, n, dh = v.shape
+    n_out = n if same else n - w.shape[2] + 1
+    return v.new_empty((b, h, n_out, dh), dtype=torch.promote_types(v.dtype, w.dtype))
+
+
 class _CPUTokenConv(torch.autograd.Function):
-    """:func:`_token_conv` on the CPU with oneDNN off, forward and backward:
-    oneDNN's float32 weight gradient of this long (k × 1) depthwise filter
-    is off by ~6e-2 relative (measured against float64 at [3, 8, 256, 64],
-    torch 2.13 CPU), ATen's own kernels by ~5e-7."""
+    """:func:`_token_conv` on the CPU with oneDNN off, forward
+    (:func:`token_conv_cpu`) and backward: oneDNN's float32 weight gradient
+    of this long (k × 1) depthwise filter is off by ~6e-2 relative
+    (measured against float64 at [3, 8, 256, 64], torch 2.13 CPU), ATen's
+    own kernels by ~5e-7."""
 
     @staticmethod
     def forward(ctx, v, w, same):
         ctx.same = same
         ctx.save_for_backward(v, w)
-        with _onednn_off():
-            return _token_conv(v, w, same)
+        return token_conv_cpu(v, w, same)
 
     @staticmethod
     def backward(ctx, g):

@@ -32,7 +32,9 @@
 * :func:`flash_attention` — the JAX signature ``(q, k, v, mask, scale)``:
   it scales q before the kernels, as JAX does, and returns O through
   :class:`FlashAttention`, a ``torch.autograd.Function`` whose forward is K1
-  (saving q, k, v, bias, O and lse) and whose backward forms delta as a
+  through the registered operator ``imp_torch::flash_fwd``
+  (:func:`flash_fwd_op`, which an exported program calls; saving q, k, v,
+  bias, O and lse) and whose backward forms delta as a
   torch op and runs K2 and K3.  Under ``torch.no_grad()`` K1 is the only
   launch.
 
@@ -213,6 +215,25 @@ def flash_attention_fwd(
     return o, lse
 
 
+@torch.library.custom_op("imp_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_fwd` as the registered operator
+    ``imp_torch::flash_fwd``: K1 on a CUDA tensor (counted where it
+    launches), the plain version on a CPU tensor.  ``torch.export`` records
+    the operator in its program, which a ``ctypes`` call would stop."""
+    return flash_attention_fwd(q, k, v, bias)
+
+
+@flash_fwd_op.register_fake
+def _(q, k, v, bias):
+    _check(q, k, v, bias)
+    b, h, nq, _ = q.shape
+    dtype = torch.promote_types(q.dtype, torch.float32)  # bf16 operands: fp32 out
+    return q.new_empty(q.shape, dtype=dtype), q.new_empty((b, h, nq), dtype=dtype)
+
+
 def flash_attention_bwd(
     q: torch.Tensor,  # [B, H, Nq, d] PRE-SCALED queries
     k: torch.Tensor,  # [B, H, Nk, d]
@@ -356,7 +377,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias):
-        o, lse = flash_attention_fwd(q, k, v, bias)
+        o, lse = flash_fwd_op(q, k, v, bias)
         ctx.save_for_backward(q, k, v, bias, o, lse)
         return o.to(q.dtype)
 

@@ -22,7 +22,8 @@
   hold them against JAX and ``chip_smoke.py`` holds the kernels against
   them on the card.
 * :class:`PinvNewtonSchulz` — a ``torch.autograd.Function`` over (x, c):
-  K6 forward, K7 backward returning (dx, Σ dcp).  The normaliser
+  K6 forward through the registered operator ``imp_torch::pinv_fwd``
+  (:func:`pinv_fwd_op`, which an exported program calls), K7 backward returning (dx, Σ dcp).  The normaliser
   c = max(colsums) · max(rowsums) is global over all g matrices, so no one
   program can form it: :func:`pinv_newton_schulz` computes it with torch
   ops outside the Function, and autograd carries dc back through its max,
@@ -202,6 +203,20 @@ def pinv_fwd(x: torch.Tensor, c: torch.Tensor, iters: int = 6) -> torch.Tensor:
     return z
 
 
+@torch.library.custom_op("imp_torch::pinv_fwd", mutates_args=())
+def pinv_fwd_op(x: torch.Tensor, c: torch.Tensor, iters: int) -> torch.Tensor:
+    """:func:`pinv_fwd` as the registered operator ``imp_torch::pinv_fwd``:
+    K6 on a CUDA tensor (counted where it launches), the plain version on a
+    CPU tensor, recorded as it is in an exported program."""
+    return pinv_fwd(x, c, iters)
+
+
+@pinv_fwd_op.register_fake
+def _(x, c, iters):
+    _check(x, c, "pinv_fwd")
+    return torch.empty_like(x)
+
+
 def pinv_bwd(
     x: torch.Tensor, c: torch.Tensor, g_out: torch.Tensor, iters: int = 6
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -240,7 +255,7 @@ class PinvNewtonSchulz(torch.autograd.Function):
     def forward(ctx, x, c, iters):
         ctx.iters = iters
         ctx.save_for_backward(x, c)
-        return pinv_fwd(x, c, iters)
+        return pinv_fwd_op(x, c, iters)
 
     @staticmethod
     def backward(ctx, g_out):

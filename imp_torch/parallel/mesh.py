@@ -128,10 +128,11 @@ def _resolve_shape(shape: Sequence[int], n: int) -> list:
 
 
 def make_mesh(axes: Sequence[str] = ("data",), shape: Sequence[int] = (-1,),
-              device="cpu") -> Mesh:
+              device="cuda") -> Mesh:
     """The mesh of ``axes`` × ``shape`` over the world (``-1`` absorbs the
     remaining ranks), laid out row-major in :data:`MESH_AXES` order; a
-    missing axis has size 1.  Every rank must call it, in the same order as
+    missing axis has size 1.  ``device`` is this rank's (the card unless
+    the caller passes ``"cpu"``).  Every rank must call it, in the same order as
     the others (it creates the process groups)."""
     axes = tuple(axes)
     for a in axes:

@@ -1,34 +1,56 @@
 """Model export + serving — the PyTorch counterpart of ``imp_tpu/serving.py``.
 
-The JAX package AOT-exports a StableHLO program that a serving host calls
-with no model code.  This port keeps the artifact's layout minus the
-program, and :func:`load_model` rebuilds the model from the manifest with
-the port's own code::
+:func:`export_trainer` exports any trainer's own eval forward (the
+counterpart of JAX's ``export_trainer``); :func:`export_model` exports a
+UMEML_GAN given as a model, its config and a batch template.  The artifact
+is a directory that a serving host loads and calls with no model code::
 
-    manifest.json   input/output shapes + model/task metadata, the config
-                    dict, the gene groups and the attention implementation
-    params.pt       the model's state dict (``torch.save``)
+    manifest.json   input/output shapes, model/task metadata, the config,
+                    the attention, the pseudo-inverse mode and the device
+    model.pt2       the eval forward as a ``torch.export`` program
+                    (``torch.export.save``) of the state dict and the
+                    batch: static shapes, the trainer's device, K1 and K6
+                    as the registered operators ``imp_torch::flash_fwd``
+                    and ``imp_torch::pinv_fwd``; it holds no weights
+    params.pt       the model's state dict (``torch.save``), the weights'
+                    one copy: the program takes it as its first input, so
+                    new weights need no new export
     aux.npz         data-derived constants (train-set ``omic_means``)
+
+Two artifact kinds, as in JAX: ``mbtrain`` (UMEML and UMEML_GAN; outputs
+``logits``, ``importance_path``, ``importance_omic``) and ``generic``
+(every ``StandardTrainer``; output ``logits``).  The program is the forward
+the trainer evaluates with: ``model(batch, train=False)`` under its
+``TRAINER.PREC`` policy, the model in eval mode, under ``torch.no_grad``.
+:func:`load_model` serves it through :class:`ServingModel` and never
+imports ``imp_torch.models``; :func:`rebuild_model` rebuilds the live
+module from ``params.pt`` and the config, as a reference.  A model that
+``torch.export`` cannot take makes the export raise, naming the model and
+the error; nothing falls back to the rebuilt module.
 
 Serving keeps the masked fixed-shape contract: ragged bags are padded to
 ``bag_pad`` with a boolean mask, short batches are wrap-padded to the
-exported batch size, and pad rows are dropped from every output.
-``torch.export`` artifacts and export from a trainer wait for later slices
-(ROADMAP.md §A); until then :func:`export_model` takes the pieces directly.
+exported batch size, and pad rows are dropped from every output.  Export
+captures the eval program of one device: :func:`export_trainer` refuses a
+trainer on a mesh of more than one rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import os.path as osp
 import threading
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
+from torch.utils._pytree import tree_unflatten
 
 MANIFEST = "manifest.json"
+PROGRAM = "model.pt2"
 PARAMS = "params.pt"
 AUX = "aux.npz"
 
@@ -68,6 +90,133 @@ def mbtrain_batch_template(cfg, batch_size: int, num_genes: int) -> Dict[str, np
     }
 
 
+@contextlib.contextmanager
+def numerics(prec: str):
+    """What every forward of the port runs under, for the extent of a
+    call: no TF32 (the model builders turn it off) and the precision
+    policy's product setting (:func:`imp_torch.engine.precision.
+    bf16_matmul_scope`).  A program does not record these flags."""
+    from .engine.precision import bf16_matmul_scope
+
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        with bf16_matmul_scope(None if prec == "fp32" else torch.bfloat16):
+            yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved
+
+
+class _Eval(nn.Module):
+    """``model(batch, train=False)`` under the precision policy of ``dtype``
+    (None: float32), returning those of ``outputs`` that the model gives."""
+
+    def __init__(self, model: nn.Module, outputs: Tuple[str, ...],
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.model, self.outputs, self.dtype = model, tuple(outputs), dtype
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        from .engine.precision import amp_call
+
+        out = amp_call(self.model, "forward", self.dtype, batch, train=False)
+        out = out if isinstance(out, dict) else {"logits": out}
+        return {k: out[k] for k in self.outputs if k in out}
+
+
+class EvalForward(nn.Module):
+    """The eval forward of a trainer (:class:`_Eval`) as a function of the
+    model's state dict and a batch.  The model is held outside the module
+    tree, so its program takes the weights as inputs and holds none of its
+    own, as JAX's program takes its params: ``params.pt`` is their one copy."""
+
+    def __init__(self, model: nn.Module, outputs: Tuple[str, ...],
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self._eval = (_Eval(model, outputs, dtype),)  # a tuple: not a submodule
+
+    def forward(self, state: Dict[str, torch.Tensor],
+                batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return torch.func.functional_call(
+            self._eval[0], {f"model.{k}": v for k, v in state.items()}, (batch,))
+
+
+def _model_modes(model: nn.Module) -> Tuple[str, Optional[str]]:
+    """(attention, pinv_mode) of the TransLayers ``model`` holds:
+    ``flash``, ``nystrom`` or ``none``; the Nyström pseudo-inverse's mode,
+    or None without a Nyström layer."""
+    from .ops.attention import ExactSelfAttention, NystromAttention
+
+    modules = list(model.modules())
+    pinv = sorted({m.pinv_mode for m in modules if isinstance(m, NystromAttention)})
+    if len(pinv) > 1:
+        raise ValueError(f"one pinv_mode per model, found {pinv}")
+    attention = ("flash" if any(isinstance(m, ExactSelfAttention) for m in modules)
+                 else "nystrom" if pinv else "none")
+    return attention, (pinv[0] if pinv else None)
+
+
+def _write(out_dir: str, model: nn.Module, batch: Dict[str, torch.Tensor], kind: str,
+           prec: str, manifest: Dict[str, Any], omic_means) -> Dict[str, Any]:
+    """Export ``model``'s eval forward at ``batch``'s static shapes and
+    write the artifact; returns the manifest."""
+    dtype = None if prec == "fp32" else torch.bfloat16  # the trainers' policy
+    forward = EvalForward(model, _MBTRAIN_OUTPUTS if kind == "mbtrain" else ("logits",), dtype)
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad(), numerics(prec):
+            program = torch.export.export(forward, (state, batch), strict=False)
+    except Exception as e:  # name the model and what stopped the export
+        msg = str(e).strip().splitlines()
+        raise RuntimeError(f"torch.export cannot export {manifest['model']} "
+                           f"({manifest['trainer']}): {type(e).__name__}: "
+                           f"{msg[0] if msg else ''}") from e
+    finally:
+        model.train(was_training)
+    if program.state_dict:  # every weight must come from params.pt
+        raise RuntimeError(f"the program of {manifest['model']} holds weights of its own: "
+                           f"{sorted(program.state_dict)[:4]}")
+    spec = program.call_spec.out_spec
+    names = list(tree_unflatten([None] * spec.num_leaves, spec))
+    attention, pinv_mode = _model_modes(model)
+    if pinv_mode:  # every builder of a model with a Nyström layer takes it
+        manifest["build"]["kwargs"]["pinv_mode"] = pinv_mode
+    first = batch["img" if "img" in batch else "mol" if "mol" in batch else "label"]
+    manifest = {
+        "format": 2,
+        "kind": kind,
+        **manifest,
+        "batch_size": int(first.shape[0]),
+        "torch_version": torch.__version__,
+        "device": str(first.device),
+        "attention": attention,
+        "pinv_mode": pinv_mode,
+        "prec": prec,
+        "outputs": names,
+        "batch_keys": {
+            k: {"shape": list(v.shape), "dtype": str(v.cpu().numpy().dtype)}
+            for k, v in batch.items()
+        },
+    }
+    if "img" in batch:
+        manifest["bag_pad"] = int(batch["img"].shape[1])
+        manifest["feat_dim"] = int(batch["img"].shape[2])
+    if "mol" in batch:
+        manifest["num_genes"] = int(batch["mol"].shape[1])
+    os.makedirs(out_dir, exist_ok=True)
+    program.example_inputs = None  # the manifest holds the shapes; no batch in the file
+    torch.export.save(program, osp.join(out_dir, PROGRAM))
+    torch.save({k: v.cpu() for k, v in state.items()}, osp.join(out_dir, PARAMS))
+    aux = {} if omic_means is None else {"omic_means": np.asarray(omic_means, np.float32)}
+    np.savez(osp.join(out_dir, AUX), **aux)
+    with open(osp.join(out_dir, MANIFEST), "w") as f:
+        json.dump(manifest, f, indent=1)
+    return manifest
+
+
 def export_model(
     model,
     cfg,
@@ -76,70 +225,140 @@ def export_model(
     omic_means: np.ndarray,
 ) -> Dict[str, Any]:
     """Write ``model`` (a UMEML_GAN of the port), its config and the serving
-    input contract ``batch_template`` to the artifact directory ``out_dir``."""
-    hb = batch_template
-    manifest = {
-        "format": 1,
-        "kind": "mbtrain",
+    input contract ``batch_template`` to the artifact directory ``out_dir``,
+    the program exported on the model's device in float32."""
+    device = next(model.parameters()).device
+    batch = {k: torch.from_numpy(np.asarray(omic_means if k == "omic_means" else v)).to(device)
+             for k, v in batch_template.items()}
+    groups = [list(g) for g in model.gene_group_indexes]
+    return _write(out_dir, model, batch, "mbtrain", "fp32", {
         "model": cfg.MODEL.NAME,
         "trainer": cfg.TRAINER.NAME,
         "task": cfg.TASK.NAME,
         "num_classes": int(model.num_classes),
-        "batch_size": int(hb["img"].shape[0]),
-        "platforms": ["cuda", "cpu"],
-        "torch_version": torch.__version__,
-        "outputs": list(_MBTRAIN_OUTPUTS),
-        "batch_keys": {
-            k: {"shape": list(np.shape(v)), "dtype": str(np.asarray(v).dtype)}
-            for k, v in hb.items()
-        },
-        "bag_pad": int(hb["img"].shape[1]),
-        "feat_dim": int(hb["img"].shape[2]),
-        "num_genes": int(hb["mol"].shape[1]),
         "config": cfg.to_dict(),
-        "gene_group_indexes": [list(g) for g in model.gene_group_indexes],
-        "attention": model.attention,
+        "gene_group_indexes": groups,
+        "build": {"name": cfg.MODEL.NAME, "num_classes": int(model.num_classes),
+                  "kwargs": {"gene_group_indexes": groups}},
+    }, omic_means)
+
+
+def example_eval_batch(trainer) -> Tuple[Dict[str, torch.Tensor], str]:
+    """(batch, kind): the first batch of the trainer's test (else val)
+    loader as its eval forward takes it, on its device — MBTRAIN's through
+    its ``_eval_batch`` with no ablation (``without_omic`` and the
+    in-sample mask zero unless the slide has no omics), a
+    ``StandardTrainer``'s its ``ARRAY_KEYS`` fields."""
+    from .engine.mbtrain import MBTRAIN
+
+    loader = trainer.test_loader or trainer.val_loader
+    raw = next(iter(loader))
+    if not isinstance(trainer, MBTRAIN):
+        return trainer._device_batch(raw), "generic"
+    saved = trainer.__dict__.get("_ablation")  # the trainer's own evaluation state
+    trainer._set_ablation(loader, 0.0, 0.0)
+    try:
+        return trainer._eval_batch(raw, "test", 0), "mbtrain"
+    finally:
+        if saved is None:
+            del trainer._ablation
+        else:
+            trainer._ablation = saved
+
+
+def _build_spec(trainer, kind: str) -> Dict[str, Any]:
+    """What :func:`rebuild_model` passes the model's builder."""
+    from .models import survival_num_classes
+
+    cfg = trainer.cfg
+    num_classes = survival_num_classes(cfg.TASK.NAME, trainer.num_classes)
+    if kind == "mbtrain":
+        kwargs = ({"gene_group_indexes": [list(g) for g in trainer.dm.gene_group_indexes or ()]}
+                  if trainer.is_gan else {"omic_dim": int(trainer.dm.omic_dim)})
+        return {"name": cfg.MODEL.NAME, "num_classes": num_classes, "kwargs": kwargs}
+    return {"name": trainer.MODEL_NAME, "num_classes": num_classes,
+            "kwargs": trainer.build_kwargs()}
+
+
+def export_trainer(trainer, out_dir: str) -> Dict[str, Any]:
+    """Export ``trainer``'s eval forward to ``out_dir`` (see the module
+    docstring), at the static shapes of its first test (else val) batch,
+    on its device, under its ``TRAINER.PREC``."""
+    if trainer.mesh.size != 1:
+        raise ValueError(
+            f"export_trainer captures the eval program of one device; this trainer runs "
+            f"a {trainer.mesh.shape} mesh — rebuild with TPU.MESH_SHAPE=(1,) for export "
+            f"(serving replicates the artifact per replica instead of sharding one call)")
+    batch, kind = example_eval_batch(trainer)
+    cfg = trainer.cfg
+    build = _build_spec(trainer, kind)
+    manifest = {
+        "model": cfg.MODEL.NAME,
+        "trainer": cfg.TRAINER.NAME,
+        "task": cfg.TASK.NAME,
+        "num_classes": int(trainer.num_classes),
+        "config": cfg.to_dict(),
+        "build": build,
     }
-    os.makedirs(out_dir, exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
-               osp.join(out_dir, PARAMS))
-    np.savez(osp.join(out_dir, AUX), omic_means=np.asarray(omic_means, np.float32))
-    with open(osp.join(out_dir, MANIFEST), "w") as f:
-        json.dump(manifest, f, indent=1)
-    return manifest
+    if "gene_group_indexes" in build["kwargs"]:
+        manifest["gene_group_indexes"] = build["kwargs"]["gene_group_indexes"]
+    return _write(out_dir, trainer.model, batch, kind, cfg.TRAINER.PREC, manifest,
+                  getattr(trainer, "omic_means", None))
+
+
+def read_manifest(out_dir: str) -> Dict[str, Any]:
+    with open(osp.join(out_dir, MANIFEST)) as f:
+        return json.load(f)
+
+
+def rebuild_model(out_dir: str, device="cuda") -> nn.Module:
+    """The live module of an artifact, rebuilt from its config and build
+    arguments with the port's model code and loaded from ``params.pt``, on
+    ``device`` in eval mode: the reference a served program is held
+    against.  Call it as the trainer's eval forward calls the model
+    (``model(batch, train=False)``, under ``TRAINER.PREC`` the manifest's
+    ``prec``)."""
+    from .config import CfgNode, get_cfg_default
+    from .engine import fusion_trainers  # noqa: F401  (registers the fusion nets)
+    from .models import build_model
+
+    manifest = read_manifest(out_dir)
+    cfg = get_cfg_default()
+    cfg.merge_from_other_cfg(CfgNode(manifest["config"]))
+    cfg.MODEL.UMEML.PROTO_INIT = "uniform"  # the prototypes come from params.pt
+    cfg.freeze()
+    spec = manifest["build"]
+    model = build_model(spec["name"], cfg=cfg, num_classes=spec["num_classes"],
+                        device=device, **spec["kwargs"])
+    state = torch.load(osp.join(out_dir, PARAMS), map_location=device, weights_only=True)
+    model.load_state_dict(state, strict=True)
+    return model
 
 
 class ServingModel:
-    """A loaded artifact: pads ragged inputs, runs the port's eval forward
-    on ``device``, strips pad rows.  Construct via :func:`load_model`."""
+    """A loaded artifact: pads ragged inputs, calls the exported program on
+    ``device``, strips pad rows.  Construct via :func:`load_model`.  A
+    program exported on another kind of device is moved with
+    ``torch.export.passes.move_to_device_pass``."""
 
     def __init__(self, out_dir: str, device="cuda"):
-        from .config import CfgNode, get_cfg_default
-        from .models import build_model
+        from . import ops  # noqa: F401  (registers the operators the program calls)
 
-        with open(osp.join(out_dir, MANIFEST)) as f:
-            self.manifest = json.load(f)
-        cfg = get_cfg_default()
-        cfg.merge_from_other_cfg(CfgNode(self.manifest["config"]))
-        cfg.TPU.ATTENTION = self.manifest["attention"]
-        cfg.freeze()
-        self.cfg = cfg
+        self.manifest = read_manifest(out_dir)
         self.device = torch.device(device)
-        self.model = build_model(
-            self.manifest["model"],
-            cfg=cfg,
-            num_classes=self.manifest["num_classes"],
-            gene_group_indexes=self.manifest["gene_group_indexes"],
-            device=self.device,
-        )
-        state = torch.load(osp.join(out_dir, PARAMS), map_location=self.device,
-                           weights_only=True)
-        self.model.load_state_dict(state, strict=True)
+        program = torch.export.load(osp.join(out_dir, PROGRAM))
+        if torch.device(self.manifest["device"]).type != self.device.type:
+            from torch.export.passes import move_to_device_pass
+
+            program = move_to_device_pass(program, self.device)
+        self._program = program.module()
+        self._state = torch.load(osp.join(out_dir, PARAMS), map_location=self.device,
+                                 weights_only=True)
         with np.load(osp.join(out_dir, AUX)) as aux:
             self._aux = dict(aux)
         self.batch_size = self.manifest["batch_size"]
         self.bag_pad = self.manifest.get("bag_pad")
-        # one forward at a time: concurrent HTTP requests queue here
+        # one call at a time: concurrent HTTP requests queue here
         self._call_lock = threading.Lock()
 
     # -------------------------------------------------------------- #
@@ -157,13 +376,13 @@ class ServingModel:
         return img, mask
 
     def predict(self, batch: Dict[str, Any]) -> Dict[str, np.ndarray]:
-        """Run the eval forward on a (possibly ragged) host batch.
+        """Run the exported program on a (possibly ragged) host batch.
 
         ``batch["img"]`` may be a list of per-slide ``[n_i, d]`` bags; other
         expected keys missing from ``batch`` are zero-filled (the ablation
-        masks) or taken from the artifact's aux arrays (``omic_means``).
-        Batches smaller than the exported batch size are wrap-padded and the
-        pad rows dropped from every output."""
+        masks, labels) or taken from the artifact's aux arrays
+        (``omic_means``).  Batches smaller than the exported batch size are
+        wrap-padded and the pad rows dropped from every output."""
         keys = self.manifest["batch_keys"]
         hb = dict(batch)
         if "img" in keys and "img" in hb and isinstance(hb["img"], (list, tuple)):
@@ -191,12 +410,15 @@ class ServingModel:
                     )
                 v = v[np.arange(spec["shape"][0]) % v.shape[0]]  # wrap-pad
             full[k] = torch.from_numpy(v).to(self.device)
-        with self._call_lock, torch.no_grad():
-            out = self.model(full)
-            return {
-                name: out[name][:b].float().cpu().numpy()
-                for name in self.manifest["outputs"]
-            }
+        outs = self.call(full)
+        return {name: outs[name][:b].float().cpu().numpy() for name in self.manifest["outputs"]}
+
+    def call(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The exported program on a batch of tensors on the device, with
+        every key of ``batch_keys`` at its exported shape: the named
+        outputs, as tensors."""
+        with self._call_lock, torch.no_grad(), numerics(self.manifest["prec"]):
+            return self._program(self._state, {k: batch[k] for k in self.manifest["batch_keys"]})
 
     def predict_many(self, batch: Dict[str, Any]) -> Dict[str, np.ndarray]:
         """:meth:`predict` for batches of ANY size: per-sample inputs are
@@ -262,9 +484,9 @@ def load_model(out_dir: str, device="cuda") -> ServingModel:
 def make_http_server(
     artifact_dir: str, host: str = "127.0.0.1", port: int = 8500, device="cuda"
 ):
-    """A threaded stdlib HTTP server around a loaded artifact.
+    """A threaded stdlib HTTP server around a loaded artifact of either kind.
 
-    * ``GET /health`` — ``{"status": "ok", ...manifest summary...}``
+    * ``GET /health`` — ``{"status": "ok", "kind": ..., ...manifest summary...}``
     * ``POST /predict`` — body ``{"batch": {...}, "risk": false}``;
       ``batch["img"]`` may be a ragged list of per-slide ``[n_i, d]`` bags,
       any batch size is accepted.  Response ``{"outputs": {name: lists},
@@ -278,6 +500,7 @@ def make_http_server(
     model = ServingModel(artifact_dir, device=device)
     summary = {
         "status": "ok",
+        "kind": model.manifest["kind"],
         "model": model.manifest["model"],
         "trainer": model.manifest["trainer"],
         "task": model.manifest["task"],

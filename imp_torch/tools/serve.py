@@ -1,4 +1,6 @@
-"""Serve an artifact of the PyTorch port over HTTP.
+"""Serve an artifact of the PyTorch port over HTTP: either kind
+(``mbtrain`` or ``generic``), through its exported program, with no model
+code.
 
 Usage:
     python -m imp_torch.tools.serve --artifact DIR \
@@ -9,10 +11,11 @@ Usage:
         "batch": {"img": [[[...512 floats...], ...]], "mol": [[...]]},
         "risk": true}'
 
+``GET /health`` reports the artifact's kind, model, task and shapes.
 ``batch.img`` may be ragged (per-slide [n_i, d] bags; the server pads and
 masks them to the exported bag length); any batch size is accepted and
-chunked to the exported batch size.  The model runs on ``--device``
-(default ``cuda``).
+chunked to the exported batch size.  The program runs on ``--device``
+(default ``cuda``); ``risk`` is answered for a Survival artifact only.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ def main(args) -> None:
     m = server.serving_model.manifest
     host, port = server.server_address[:2]
     print(
-        f"serving {m['model']} ({m['task']}, batch {m['batch_size']}, "
+        f"serving {m['model']} ({m['kind']}, {m['task']}, batch {m['batch_size']}, "
         f"attention {m['attention']}, device {args.device}) on "
         f"http://{host}:{port} — GET /health, POST /predict",
         flush=True,

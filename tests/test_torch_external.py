@@ -41,7 +41,13 @@ from imp_torch.data import synthetic
 from imp_torch.data.external import build_test_new
 from imp_torch.engine import build_trainer
 from imp_torch.models import build_model
-from imp_torch.serving import even_gene_groups, export_model, load_model, mbtrain_batch_template
+from imp_torch.serving import (
+    even_gene_groups,
+    export_model,
+    load_model,
+    mbtrain_batch_template,
+    rebuild_model,
+)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 FEAT, BAG, GENES, HIDDEN = 32, 40, 60, 64
@@ -225,7 +231,7 @@ def test_classification_export_loads_predicts_and_refuses_risk(tmp_path):
     assert manifest["task"] == "Classification" and manifest["num_classes"] == 6
 
     served = load_model(str(tmp_path), device="cpu")
-    assert served.model.fusion == "bilinear"
+    assert rebuild_model(str(tmp_path), device="cpu").fusion == "bilinear"
     rng = np.random.default_rng(2)
     slides = {"img": [rng.normal(size=(n, FEAT)).astype(np.float32) for n in (30, 7)],
               "mol": rng.lognormal(size=(2, GENES)).astype(np.float32),

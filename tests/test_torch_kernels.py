@@ -519,7 +519,10 @@ def test_port_imports_with_jax_blocked():
         "import imp_torch.engine.mbtrain, imp_torch.tools.train, imp_torch.data\n"
         "import imp_torch.evaluation, imp_torch.native, imp_torch.ops.modularity\n"
         "import imp_torch.engine.baselines, imp_torch.models.nets, imp_torch.ops.blocks\n"
-        "import imp_torch.ops.pinv, imp_torch.models.umeml\n"
+        "import imp_torch.ops.pinv, imp_torch.models.umeml, imp_torch.losses\n"
+        "import imp_torch.data.labeling, imp_torch.data.xlsx, imp_torch.ops.extras\n"
+        "import imp_torch.tools.kfold, imp_torch.tools.label_gen\n"
+        "import imp_torch.tools.generate_test_labels\n"
         "from imp_torch.config import get_cfg_default\n"
         "cfg = get_cfg_default(); cfg.TPU.ATTENTION = 'flash'; cfg.freeze()\n"
         "print('ok')\n"

@@ -179,7 +179,7 @@ def test_one_process_is_the_world_of_one():
     from imp_torch.engine.trainer import REPLICATED_KEYS, SEQ_SHARDED_KEYS, pad_ragged_dim0
     from imp_torch.parallel import make_mesh, shard_batch
 
-    mesh = make_mesh(("data", "seq"), (-1, 1))
+    mesh = make_mesh(("data", "seq"), (-1, 1), "cpu")
     assert mesh.shape == {"data": 1, "seq": 1, "model": 1, "pipe": 1} and mesh.size == 1
     batch = {"img": np.ones((3, 8, 2), np.float32), "omic_means": np.zeros(5, np.float32)}
     out = shard_batch(pad_ragged_dim0(batch, mesh.data.size), mesh, SEQ_SHARDED_KEYS,

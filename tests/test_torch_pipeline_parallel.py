@@ -106,7 +106,7 @@ def test_a_split_run_at_pp_1_gives_the_unsplit_tower(tower):
     case, _, _, _ = tower
     module = VisionTransformer(**VIT)
     module.load_state_dict(case["vit_state"], strict=True)
-    mesh = make_mesh(("data", "pipe"), (1, 1))
+    mesh = make_mesh(("data", "pipe"), (1, 1), "cpu")
     got = make_pp_encode(module, mesh, 2)(put_pp_params(split_vision_params_pp(
         case["vit_state"], 1), mesh), case["images"])
     with torch.no_grad():

@@ -32,6 +32,7 @@ from imp_torch.serving import (
     load_model,
     make_http_server,
     mbtrain_batch_template,
+    rebuild_model,
     survival_risk,
 )
 from imp_torch.tools import export_model as export_cli
@@ -213,23 +214,24 @@ def test_flash_artifact_and_export_cli(tmp_path):
     args = export_cli.parser().parse_args(
         ["--export-dir", str(tmp_path / "a"), "--config-file",
          str(REPO / "configs/Survival/UMEML_GAN.yaml"), "--random-init", "--seed", "3",
-         "--attention", "flash", "--batch-size", "2", *shrink])
+         "--attention", "flash", "--batch-size", "2", "--device", "cpu", *shrink])
     manifest = export_cli.main(args)
     assert manifest["attention"] == "flash" and manifest["batch_size"] == 2
     served = load_model(str(tmp_path / "a"), device="cpu")
-    assert served.model.attention == "flash"
+    model = rebuild_model(str(tmp_path / "a"), device="cpu")
+    assert model.attention == "flash"
     slides = _slides((40, 64, 3))
     got = served.predict_many(slides)["logits"]
     chunk = _padded_chunk(slides, 0, 2, served._aux["omic_means"], batch=2)
     with torch.no_grad():
-        want = served.model({k: torch.from_numpy(v) for k, v in chunk.items()})["logits"]
+        want = model({k: torch.from_numpy(v) for k, v in chunk.items()})["logits"]
     np.testing.assert_allclose(got[:2], want.numpy(), rtol=TOL, atol=TOL)
 
-    torch.save(served.model.state_dict(), tmp_path / "w.pt")
+    torch.save(model.state_dict(), tmp_path / "w.pt")
     args = export_cli.parser().parse_args(
         ["--export-dir", str(tmp_path / "b"), "--config-file",
          str(REPO / "configs/Survival/UMEML_GAN.yaml"), "--params", str(tmp_path / "w.pt"),
-         "--attention", "flash", "--batch-size", "2", *shrink])
+         "--attention", "flash", "--batch-size", "2", "--device", "cpu", *shrink])
     export_cli.main(args)
     again = load_model(str(tmp_path / "b"), device="cpu").predict_many(slides)["logits"]
     np.testing.assert_array_equal(again, got)

@@ -155,7 +155,7 @@ def test_a_rank_holds_one_tpth_of_the_block_weights(towers):
 @pytest.mark.parametrize("tower", ["vit", "text"])
 def test_a_split_run_at_tp_1_gives_the_unsplit_tower(towers, tower):
     case, _, _, _ = towers
-    mesh = make_mesh(("data", "model"), (1, 1))
+    mesh = make_mesh(("data", "model"), (1, 1), "cpu")
     if tower == "vit":
         module, state, x = VisionTransformer(**VIT), case["vit_state"], case["images"]
         encode = make_tp_encode(module, mesh)
