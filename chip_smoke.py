@@ -235,6 +235,22 @@ Phases, each printing one JSON line (the run fails on the first error):
    launch with the program moved to the CPU; a Classification UMEML_GAN
    artifact over the HTTP host (a ragged request answered, ``risk``
    refused with 400).  It runs after phase 8.
+32. ``protocol`` — the paper's five-fold protocol on the port:
+   ``python -m imp_torch.tools.run_method`` (in process, on the seeded bags
+   of the same 16 slides) with ``configs/Survival/UMEML_GAN.yaml`` as
+   committed, seeds 1 and 2 at ``TPU.ATTENTION auto``, and
+   ``configs/Classification/UMEML_GAN.yaml``, seed 1 under flash, 2
+   epochs each (plain, then GAN + replacement, the CCA epoch between; one
+   ``protocol_run`` line each): every seed's ``log.txt`` has its metric
+   line after training and its last checkpoint, the parser's summary
+   (``imp_torch.tools.parse_test_res``) is the mean and sd of the values
+   the runs returned as the logs print them, K4/K5 once per main step and
+   never outside one, K1 once per TransLayer call and K2/K3 once per call
+   with grad on the flash seed; then ``imp_torch.tools.transform_molecular``
+   on ``tests/fixtures/gdc`` in a process that cannot import pandas (its
+   files equal the JAX tool's in ``expected/``) and
+   ``imp_torch.tools.gen_configs`` into a tmp dir (equal to the 52
+   committed ``configs/*/*.yaml``).  It runs after phase 20.
 Phases 27, 29, 28 and 30 run after phase 25, in that order.  ``python3
 chip_smoke.py --sp-only`` on a host of two cards or more (four H100s joined
 by NVLink) builds the kernels and runs ``train_sp`` and ``clip_tp_pp`` over
@@ -275,7 +291,8 @@ backward, with the name of SDPA's backward kernel from the trace; K6 and K7 with
 products they replace), the card's name and power limit from
 ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Weights are
 random, from a seed.  K1 and K6 also carry a ``program`` object: their
-launches per served forward through phase 31's programs.  Without a CUDA
+launches per served forward through phase 31's programs.  Every kernel
+carries ``protocol_launches``, its launches in phase 32's runs.  Without a CUDA
 card the script exits 2 and prints no result.
 """
 
@@ -3469,6 +3486,167 @@ BF16_GATE = 2e-2  # a bf16 step through the kernels vs through the plain version
 BF16_MARGIN = 1e-4  # ... and its distance from the fp32 plain step: 2x the plain's + this
 
 
+#: the protocol phase's runs: (task, TPU.ATTENTION, seeds)
+PROTOCOL_RUNS = (("Survival", "auto", (1, 2)), ("Classification", "flash", (1,)))
+PROTOCOL_EPOCHS = 2  # plain, then GAN + replacement, the CCA epoch between them
+GDC_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "gdc")
+GDC_TOP_K = 12  # the fixture's expected/ files are the JAX tool's output at this k
+PRINTED_DIGITS = {"cindex": 2, "accuracy": 1}  # as the evaluators print the metric lines
+
+
+def same_files(a: str, b: str, names=None) -> dict:
+    """{"files": n, "differ": [names whose bytes differ or are missing]}."""
+    import filecmp
+
+    names = sorted(os.listdir(a)) if names is None else names
+    _, mismatch, errors = filecmp.cmpfiles(a, b, names, shallow=False)
+    return {"files": len(names), "differ": mismatch + errors}
+
+
+def etl_without_pandas(tmp: str) -> dict:
+    """``imp_torch.tools.transform_molecular`` on the GDC fixture in a child
+    process where pandas, jax and imp_tpu cannot be imported; its files
+    against the fixture's ``expected/`` (the JAX tool's bytes)."""
+    out = os.path.join(tmp, "etl")
+    fx = GDC_FIXTURE
+    argv = ["--gdc-meta", os.path.join(fx, "metadata.cart.json"),
+            "--gene-variance", os.path.join(fx, "gene_variance.csv"),
+            "--origin-dir", os.path.join(fx, "origin"), "--feature-dir", os.path.join(fx, "features"),
+            "--out-dir", out, "--top-k", str(GDC_TOP_K)]
+    code = ("import sys\n"
+            "for name in ('pandas', 'jax', 'imp_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "from imp_torch.tools import transform_molecular\n"
+            f"transform_molecular.main({argv!r})\n")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([here, os.environ.get("PYTHONPATH", "")]))
+    res = subprocess.run([sys.executable, "-c", code], cwd=here, env=env, capture_output=True,
+                         text=True, timeout=120)
+    row = {"rc": res.returncode, "stdout_last": res.stdout.strip().splitlines()[-1:]}
+    if res.returncode == 0:
+        row.update(same_files(os.path.join(fx, "expected"), out))
+    else:
+        row["stderr"] = res.stderr[-2000:]
+    return row
+
+
+def phase_protocol(card: str, root: str, out: str):
+    """The paper's five-fold protocol through ``imp_torch.tools.run_method``
+    (in process, on the seeded bags): UMEML_GAN.yaml at Survival, seeds 1
+    and 2 at ``auto`` (K4/K5 once per main step), and Classification's
+    UMEML_GAN.yaml, seed 1 under flash (K1 once per TransLayer call, K2/K3
+    once per call with grad), 2 epochs each; the seeds' logs, checkpoints and
+    the parser's summary against the values the runs returned; then the
+    molecular ETL on the GDC fixture (no pandas) and the config generator
+    into a tmp dir, both against the committed files."""
+    import torch
+
+    from imp_torch import kernels
+    from imp_torch.engine.mbtrain import MBTRAIN
+    from imp_torch.tools import gen_configs, parse_test_res, run_method
+
+    t_phase = time.perf_counter()
+    runs, total = [], {k: 0 for k in kernels.launches()}
+    for task, attention, seeds in PROTOCOL_RUNS:
+        argv = [task, "UMEML_GAN", "MBTRAIN", root, "--seeds", *map(str, seeds),
+                "--device", DEVICE, "--output-root", out,
+                "OPTIM.MAX_EPOCH", str(PROTOCOL_EPOCHS), "TRAIN.CURRICULUM.GAN_START_EPOCH", "1",
+                "TRAIN.CURRICULUM.REPLACE_START_EPOCH", "1", "TPU.ATTENTION", attention,
+                "VERBOSE", "False"]
+        record = []
+        console = io.StringIO()
+        torch.cuda.synchronize()
+        with seeded_bags(), audited(MBTRAIN, ("train_step", "run_epoch_cca", "test"), record), \
+                contextlib.redirect_stdout(console):
+            # ---- the main path: counts at 0 just before, read just after ------
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = run_method.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = kernels.launches()
+        for k, v in counts.items():
+            total[k] += v
+        log_text = console.getvalue()
+        method_dir = os.path.join(out, task, "UMEML_GAN")
+        os.makedirs(LOG_DIR, exist_ok=True)
+        with open(os.path.join(LOG_DIR, f"chip_smoke_protocol_{task}_log.txt"), "w") as f:
+            f.write(log_text)
+
+        keyword = res["keyword"]
+        seed_rows = {}
+        for seed in seeds:
+            sdir = os.path.join(method_dir, f"seed{seed}")
+            metric = parse_test_res.metric_regex(keyword or "cindex")
+            found = parse_test_res.collect(metric, directory=method_dir, end_signal="Finish training")
+            parsed = [o[metric["name"]] for o in found
+                      if os.path.basename(os.path.dirname(o["file"])) == f"seed{seed}"]
+            pointer = os.path.join(sdir, "model", "checkpoint")
+            ckpt = open(pointer).read().strip() if os.path.isfile(pointer) else None
+            seed_rows[seed] = {"returned": res["results"][seed], "parsed": parsed,
+                               "checkpoint": ckpt,
+                               "checkpoint_file": bool(ckpt) and os.path.isfile(
+                                   os.path.join(sdir, "model", ckpt))}
+        values = [res["results"][s] for s in seeds]
+        digits = PRINTED_DIGITS.get(keyword, 2)
+        printed = [round(v, digits) for v in values]
+        mean, sd = res["summary"][keyword] if res["summary"] else (None, None)
+        steps = [r for r in record if r[0] == "train_step"]
+        others = [r for r in record if r[0] != "train_step"]
+        flash = attention == "flash"
+        per_step_ok = all(d["modularity_deg"] == 1 and d["modularity_combined"] == 1
+                          and (d["flash_fwd"] > 0) == flash for _, d, _, _ in steps)
+        # outside the main steps (CCA epochs, evaluations): no K4/K5; at auto
+        # no launch at all, under flash K1-K3 as flash_launches_match_layers
+        others_ok = all(d["modularity_deg"] == d["modularity_combined"] == 0
+                        and (flash or not any(d.values())) for _, d, _, _ in others)
+        row = {
+            "task": task, "attention": attention, "seeds": list(seeds), "metric": keyword,
+            "seed_runs": seed_rows, "summary": {"mean": mean, "sd": sd},
+            "printed_values": printed, "launches": counts, "main_steps": len(steps),
+            "gan_steps": sum("loss_gen" in (m or {}) for _, _, _, m in steps),
+            "cca_epochs": sum(r[0] == "run_epoch_cca" for r in others),
+            "evaluations": sum(r[0] == "test" for r in others),
+            "translayer_calls_per_main_step": sorted({c["calls"] for _, _, c, _ in steps}),
+            "K4_K5_once_per_main_step": per_step_ok, "nothing_else_outside_steps": others_ok,
+            "flash_launches_match_translayer_calls": flash_launches_match_layers(record)
+            if flash else None,
+            "seconds": seconds,
+        }
+        runs.append(row)
+        emit({"phase": "protocol_run", "card": card, **row})
+        require(keyword == ("cindex" if task == "Survival" else "accuracy"), row)
+        for seed, sr in seed_rows.items():
+            require(sr["parsed"] == [round(sr["returned"], digits)] and sr["checkpoint"]
+                    == f"model.ckpt-{PROTOCOL_EPOCHS}" and sr["checkpoint_file"],
+                    f"seed {seed}: metric line or checkpoint missing: {row}")
+        require(mean is not None and abs(mean - float(np.mean(printed))) < 1e-9
+                and abs(sd - float(np.std(printed))) < 1e-9, f"parser summary: {row}")
+        require(len(steps) > 0 and per_step_ok and others_ok, f"K4/K5 off the main steps: {row}")
+        require(counts["modularity_deg"] == counts["modularity_combined"] == len(steps), row)
+        require(not flash or (row["flash_launches_match_translayer_calls"]
+                              and counts["flash_fwd"] > 0), f"K1-K3 vs TransLayer calls: {row}")
+        require(row["gan_steps"] > 0 and row["cca_epochs"] == len(seeds) * (PROTOCOL_EPOCHS - 1),
+                row)
+
+    etl = etl_without_pandas(out)
+    gen_dir = os.path.join(out, "configs")
+    with contextlib.redirect_stdout(io.StringIO()):
+        gen_configs.main(["--out-dir", gen_dir])
+    names = sorted(os.path.join(t, f) for t in os.listdir(gen_dir)
+                   for f in os.listdir(os.path.join(gen_dir, t)))
+    configs = same_files(gen_dir, CONFIGS, names)
+    row = {"phase": "protocol", "card": card, "entry": "python -m imp_torch.tools.run_method",
+           "runs": [{k: r[k] for k in ("task", "attention", "seeds", "metric", "summary",
+                                        "main_steps", "seconds")} for r in runs],
+           "launches": total, "etl_without_pandas": etl, "gen_configs": configs,
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    require(etl["rc"] == 0 and etl["files"] == 3 and not etl["differ"], f"ETL: {etl}")
+    require(configs["files"] == 52 and not configs["differ"], f"gen_configs: {configs}")
+    return row, total
+
+
 def phase_flash_bf16(card: str, build_report: dict):
     """K1-K3's bf16 entries (``TRAINER.PREC`` bf16: q, k, v in bf16, the rest
     and the outputs fp32) at TransMIL's bag, CMTA's masked bag and
@@ -5220,6 +5398,8 @@ def main() -> int:
         clocked("train_clipomic", phase_train_clipomic, card, root, os.path.join(tmp, "clipomic"))
         _, plip_counts = clocked("plip_umeml_gan", phase_plip_umeml_gan, card, root,
                                  os.path.join(tmp, "plip"))
+        _, protocol_counts = clocked("protocol", phase_protocol, card, root,
+                                     os.path.join(tmp, "protocol"))
     # last, where the profiler loses the most records (traced)
     bf16_rows = clocked("kernel_flash_bf16", phase_flash_bf16, card, report)
     clocked("trace_sessions", phase_trace_sessions, card)
@@ -5309,7 +5489,7 @@ def main() -> int:
             "bound_fp32_cores_ms": main["bound_fp32_cores_ms"],
             "share_of_bound": main["share_of_bound"], "same_bits_twice": main["same_bits_twice"],
             "dynamic_smem_bytes": main["dynamic_smem_bytes"],
-            "ptxas": main["ptxas"],
+            "ptxas": main["ptxas"], "protocol_launches": protocol_counts[name],
         }
 
     def flash_bwd_entry(name):
@@ -5322,7 +5502,7 @@ def main() -> int:
             "share_of_bound": main["share_of_bound"],
             "dynamic_smem_bytes": main["dynamic_smem_bytes"], "ptxas": main["ptxas"],
             "cmta": cmta_entry(name), "bf16": bf16_entry(name), "partial": partial_entry(name),
-            "partial_bf16": partial_bf16_entry(name),
+            "partial_bf16": partial_bf16_entry(name), "protocol_launches": protocol_counts[name],
         }
 
     def pinv_entry(name):
@@ -5337,6 +5517,7 @@ def main() -> int:
             "cluster": main["cluster"], "dynamic_smem_bytes": main["dynamic_smem_bytes"],
             "ptxas": main["ptxas"], "cmta": cmta_entry(name),
             **({"program": program_entry(name)} if name == "pinv_fwd" else {}),
+            "protocol_launches": protocol_counts[name],
         }
 
     emit({"kernels": [
@@ -5353,6 +5534,7 @@ def main() -> int:
             "cmta": cmta_entry("flash_fwd"), "bf16": bf16_entry("flash_fwd"),
             "partial": partial_entry("flash_fwd"), "partial_bf16": partial_bf16_entry("flash_fwd"),
             "program": program_entry("flash_fwd"),
+            "protocol_launches": protocol_counts["flash_fwd"],
         },
         *(flash_bwd_entry(n) for n in ("flash_bwd_dq", "flash_bwd_dkv")),
         modularity_entry("modularity_deg"),

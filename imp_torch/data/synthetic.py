@@ -10,7 +10,9 @@ shifts the bag features and the survival bin sets survival months.
 
 CSVs go through the standard library's ``csv``; ``h5py`` is imported only
 to write the bags, and ``bags=False`` skips them (a host without h5py then
-reads bags with its own ``SlideDataset._load_bag``).
+reads bags with its own ``SlideDataset._load_bag``); ``bags="npy"`` writes
+each bag with ``np.save`` beside its .h5 name (``<slide>.h5.npy``), the
+same numbers, for a reader that ``np.load``s them.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ def materialize(
     h5_key: str = "clip_vit_b32_feature",
     num_folds: int = 5,
     seed: int = 0,
-    bags: bool = True,
+    bags=True,
 ) -> str:
     """Create the tree under ``root`` and return the dataset root."""
     rng = np.random.default_rng(seed)
@@ -87,7 +89,9 @@ def materialize(
         n_patches = int(rng.integers(bag_min, bag_max + 1))
         bag = rng.normal(size=(n_patches, feat_dim)).astype(np.float32)
         bag += 0.75 * class_dirs[cls_label]
-        if bags:
+        if bags == "npy":
+            np.save(osp.join(bag_dir, sid + ".h5.npy"), bag)
+        elif bags:
             import h5py
 
             with h5py.File(osp.join(bag_dir, sid + ".h5"), "w") as f:
