@@ -175,8 +175,8 @@ Phases, each printing one JSON line (the run fails on the first error):
    [B, 7, 7] similarity grids and the count of PNGs written (none where
    matplotlib is absent).
 26. ``trace_sessions`` — how many primer kernel records each traced window
-   lost (:func:`traced`: the profiler loses the first records of a
-   session, the more the older the process).
+   lost (``imp_torch.utils.profiling.traced``: the profiler loses the first
+   records of a session, the more the older the process).
 27. ``kernel_flash_partial`` — K1-K3 under ring attention's per-chunk
    contract at TransMIL's bag (1, 8, 10 001, 64) with its 7 314 valid keys
    cut into 4 key chunks, the last without a valid key: K1 per chunk and
@@ -251,6 +251,25 @@ Phases, each printing one JSON line (the run fails on the first error):
    files equal the JAX tool's in ``expected/``) and
    ``imp_torch.tools.gen_configs`` into a tmp dir (equal to the 52
    committed ``configs/*/*.yaml``).  It runs after phase 20.
+33. ``bench_tools`` — the port's bench tools, in process, at short
+   settings (``imp_torch.utils.profiling`` is their timing harness and
+   this script's): one ``imp_torch.tools.bench.build_step`` step at batch
+   2 and full width (bags of 10 000 x 512, hidden 256, 3 360 genes) up to
+   its main update through K4/K5 against the same under
+   :func:`plain_modularity` (the loss and every gradient of the main
+   update within STEP_TOL); ``bench`` at batch 8 (its JSON line has every
+   field, K4/K5 once per step, its baseline written only in the run's tmp
+   dir, ``bench_baseline.json`` untouched); ``ab_step --knob pinv --slots
+   2 --iters 5`` (K6/K7 6 times a step in the fused arm, never in the
+   chain's); ``bench_anatomy --iters 5`` (every section finite, with its
+   device-busy ms; K4/K5 once a call of the full step and of the
+   modularity pair); ``bench_flash --check`` at n 1 024 (fp32 within
+   KERNEL_TOL of the dense attention, K1 once per forward, K2 and K3 once
+   per backward, in fp32 and on the bf16 entries), then timed at its
+   default envelope in fp32 and bf16 (K1 once a call);
+   ``bench_pinv --check`` at (g, m) = (16, 128), (64, 128) and (8, 256);
+   ``bench_vit --stage device`` at batch 32, fp32 and bf16.  It runs after
+   phase 6.
 Phases 27, 29, 28 and 30 run after phase 25, in that order.  ``python3
 chip_smoke.py --sp-only`` on a host of two cards or more (four H100s joined
 by NVLink) builds the kernels and runs ``train_sp`` and ``clip_tp_pp`` over
@@ -312,6 +331,11 @@ import urllib.error
 import urllib.request
 
 import numpy as np
+
+from imp_torch.utils.profiling import (
+    TRACE_PRIMERS, TRACE_SESSIONS, TRACE_SHORT, card_line, cuda_ms, device_busy_ms, device_ms,
+    device_ms_by, device_rows, profiled, time_step,
+)
 
 DEVICE = "cuda"
 SERVE_BATCH = 8  # the exported batch: configs/Survival/UMEML_GAN_THROUGHPUT.yaml
@@ -482,151 +506,6 @@ def require(ok: bool, what) -> None:
     """Fail the run unless ``ok`` (an ``assert`` would vanish under -O)."""
     if not ok:
         raise AssertionError(what)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-#: tiny kernels (``torch.cuda._sleep``: ``spin_kernel``) launched at the
-#: start of each traced window.  The profiler loses the first kernel
-#: records of a session, the more the older the process (none early in a
-#: run; every record of a short window at its end, after the CLIP phases),
-#: whichever library launched the kernels, which run and give their
-#: results all the same; the primers take the loss, and a window in which
-#: none of them survived is traced again with four times as many
-TRACE_PRIMERS = 64
-PRIMER_KERNEL = "spin_kernel"
-#: (primers launched, primer records in the trace) of every traced window
-TRACE_SESSIONS: list = []
-#: the loss can also strike past the primers (a window whose primers
-#: survived held 4 launches of ``dkv_kernel`` in 5 calls): such a window is
-#: traced again, at most this many times
-TRACE_RETRIES = 4
-#: {kernel: (records, calls)} of every window traced again for such a loss
-TRACE_SHORT: list = []
-
-
-def short_counts(prof, kernel_names, iters: int) -> dict:
-    """{kernel: (records, calls)} of each of ``kernel_names`` whose records
-    in the trace ``prof`` are no multiple of ``iters`` (each call launches
-    it as often): the trace lost some."""
-    rows = device_rows(prof.key_averages())
-    counts = {k: sum(e.count for e in rows if k in e.key) for k in kernel_names}
-    return {k: (n, iters) for k, n in counts.items() if n % iters}
-
-
-def traced(fn, iters: int, whole=()):
-    """The ``torch.profiler`` session of ``iters`` calls of ``fn`` (after
-    one untimed call), behind ``TRACE_PRIMERS`` primer kernels; None where
-    CUPTI refuses to trace the card.  A session in which a kernel named in
-    ``whole`` lost records is traced again, at most ``TRACE_RETRIES``
-    times."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    primers, retries = TRACE_PRIMERS, 0
-    while True:
-        try:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(primers):
-                    torch.cuda._sleep(1)
-                torch.cuda.synchronize()
-                for _ in range(iters):
-                    fn()
-                torch.cuda.synchronize()
-        except RuntimeError as e:  # CUPTI refused: report, do not fail the run
-            print(f"chip_smoke: profiler unavailable: {e}", file=sys.stderr)
-            return None
-        seen = sum(e.count for e in prof.key_averages() if PRIMER_KERNEL in e.key)
-        TRACE_SESSIONS.append((primers, seen))
-        if not seen:  # the loss may reach into fn's records: more primers
-            require(primers < 64 * TRACE_PRIMERS,
-                    f"the trace lost all of {primers} primer kernels: {TRACE_SESSIONS[-4:]}")
-            primers *= 4
-            continue
-        short = short_counts(prof, whole, iters)
-        if not short:
-            return prof
-        TRACE_SHORT.append(short)
-        require(retries < TRACE_RETRIES,
-                f"{retries + 1} traces in a row lost records of a timed kernel: "
-                f"{TRACE_SHORT[-retries - 1:]}")
-        retries += 1
-
-
-def profiled(fn, iters: int, whole=()):
-    """The key averages of :func:`traced`; None where CUPTI refuses.  Fails
-    where the trace holds no device row of ``fn``: every traced ``fn`` runs
-    device work."""
-    prof = traced(fn, iters, whole)
-    if prof is None:
-        return None
-    events = prof.key_averages()
-    require(device_rows(events), f"the trace of {getattr(fn, '__name__', fn)} holds no "
-                                 "device row")
-    return events
-
-
-def device_rows(events):
-    """The rows of a trace that are device work (kernels, copies, sets).
-    A CPU row (an aten op, ``cudaLaunchKernel``) also carries the device
-    time of the kernels it launched, so summing every row counts a kernel
-    more than once.  The primer kernels of :func:`traced` are left out."""
-    from torch.autograd import DeviceType
-
-    return [e for e in events or ()
-            if e.device_type == DeviceType.CUDA and PRIMER_KERNEL not in e.key]
-
-
-def device_ms_by(fn, kernel_names, iters: int = 20) -> dict:
-    """Mean device time per call of ``fn`` of each CUDA kernel whose name
-    holds one of ``kernel_names``; None where the trace holds no device time
-    for it.  Fails where a kernel's launches in the trace are no multiple
-    of ``iters`` (each call launches it as often) in every one of
-    :func:`traced`'s attempts: the trace lost some."""
-    rows = device_rows(profiled(fn, iters, kernel_names))
-    totals = {}
-    for k in kernel_names:
-        mine = [e for e in rows if k in e.key]
-        count = sum(e.count for e in mine)
-        require(count % iters == 0, f"{count} launches of {k} in a trace of {iters} calls")
-        totals[k] = sum(e.self_device_time_total for e in mine)
-    return {k: v / iters / 1e3 if v else None for k, v in totals.items()}
-
-
-def device_ms(fn, kernel_name: str, iters: int = 20):
-    """Mean device time of the CUDA kernel named ``kernel_name`` per call of
-    ``fn``; None where the trace holds no device time for it."""
-    return device_ms_by(fn, (kernel_name,), iters)[kernel_name]
-
-
-def device_busy_ms(fn, iters: int = 5):
-    """Mean device time of all device work per call of ``fn`` (the busy part
-    of its wall time); None where the trace holds no device time."""
-    total = sum(e.self_device_time_total for e in device_rows(profiled(fn, iters)))
-    return total / iters / 1e3 if total else None
-
-
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device milliseconds of ``fn()`` over ``iters`` launches."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 # ---------------------------------------------------------------------------
@@ -2052,52 +1931,6 @@ def grads_check(loss_and_grads, plain, names):
     return check, counted
 
 
-def time_step(step, kernel_names, timed: int = STEP_TIMED, traced: int = 3):
-    """Median and p90 host ms of ``timed`` calls of ``step()`` (synchronised,
-    after warm-up),
-    the device busy ms per step, the device ms of ``kernel_names`` per
-    step (together and by kernel) over ``traced`` traced steps, and the
-    peak device memory."""
-    import torch
-
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(timed):
-        t0 = time.perf_counter()
-        metrics = step()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    events = profiled(step, traced, kernel_names)
-    rows = device_rows(events)
-    for k in kernel_names:  # each step launches a kernel as often: none lost
-        count = sum(e.count for e in rows if k in e.key)
-        require(count % traced == 0, f"{count} launches of {k} in a trace of {traced} steps")
-    busy = sum(e.self_device_time_total for e in rows) / traced / 1e3 if rows else None
-
-    def named_ms(names):
-        return (sum(e.self_device_time_total for e in rows
-                    if any(k in e.key for k in names)) / traced / 1e3) if rows else None
-
-    median = float(np.median(times)) * 1e3
-    return {
-        "step_ms_median": median, "step_ms_p90": float(np.percentile(times, 90)) * 1e3,
-        "timed_steps": timed, "kernels_device_ms_per_step": named_ms(kernel_names),
-        "kernels_timed": list(kernel_names),
-        "by_kernel_device_ms_per_step": {k: named_ms((k,)) for k in kernel_names},
-        "device_busy_ms_per_step": busy,
-        # every row of the trace summed, for comparison: kernels counted
-        # again under the CPU rows that launched them
-        "all_trace_rows_ms_per_step": sum(e.self_device_time_total
-                                          for e in events or ()) / traced / 1e3,
-        "device_idle_share": None if busy is None else 1.0 - busy / median,
-        "peak_device_gib": peak, "loss_finite": bool(np.isfinite(float(metrics["loss"]))),
-    }
-
-
 PINV_KERNEL_NAMES = ("pinv_fwd_kernel", "pinv_bwd_kernel")
 
 
@@ -2124,7 +1957,7 @@ def pinv_ab(step, kernel_names, first_chain=None):
                 step()
                 torch.cuda.synchronize()
                 launched[mode] = {k: v for k, v in kernels.launches().items() if v}
-            turns[mode].append(time_step(step, names))
+            turns[mode].append(time_step(step, names, timed=STEP_TIMED))
     out = {mode: {"step_ms_median": float(np.median([t["step_ms_median"] for t in ts])),
                   "launches_per_step": launched[mode], "turns": ts}
            for mode, ts in turns.items()}
@@ -2200,7 +2033,8 @@ def phase_train_step(card: str, root: str, out: str, attention: str = "auto"):
         return trainer.train_step(db, train_gan=True, replace_ratio=0.25)
 
     with contextlib.nullcontext() if flash else chain_pinv():
-        timing = time_step(step, MOD_KERNEL_NAMES + (FLASH_KERNEL_NAMES if flash else ()))
+        timing = time_step(step, MOD_KERNEL_NAMES + (FLASH_KERNEL_NAMES if flash else ()),
+                           timed=STEP_TIMED)
     b = len(batch["patient_id"])
     row = {
         "phase": "train_step_flash" if flash else "train_step", "card": card,
@@ -2219,6 +2053,167 @@ def phase_train_step(card: str, root: str, out: str, attention: str = "auto"):
         require(fused.get("pinv_fwd") == fused.get("pinv_bwd") == 6
                 and "pinv_fwd" not in row["pinv_ab"]["chain"]["launches_per_step"], row["pinv_ab"])
     return row
+
+
+# ---------------------------------------------------------------------------
+# phase 33: the bench tools
+# ---------------------------------------------------------------------------
+
+BENCH_FIELDS = ("metric", "value", "unit", "vs_baseline", "best", "windows", "batch", "bag_pad",
+                "feat_dim", "num_genes", "hidden", "prec", "attention", "pinv_mode", "no_gan",
+                "no_mod", "no_opt", "no_kd", "launches_per_step", "card")
+#: (g, m) of bench_pinv --check: the three Nyström shapes of the K6/K7 table
+BENCH_PINV_SHAPES = ((16, 128), (64, 128), (8, 256))
+#: bench_anatomy's sections that launch K4 and K5 once a call
+BENCH_ANATOMY_K4_K5 = ("full_train_step", "modularity_pair_fwd_bwd")
+
+
+def quiet(main, argv):
+    """``main(argv)``'s result, its printed lines kept apart from the run's."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = main(argv)
+    return result, out.getvalue().splitlines()
+
+
+def bench_step_check() -> dict:
+    """One ``imp_torch.tools.bench.build_step`` step at batch 2 and full width
+    up to its main update (``step.loss_and_grads``: the encode, the GAN
+    phase, the main loss and its gradients) through K4/K5 and, under
+    :func:`plain_modularity`, through the plain passes, each on a model
+    built anew from the same seed with the same generator seed: the loss
+    and every gradient the main update takes within STEP_TOL, K4 and K5
+    once each."""
+    import torch
+
+    from imp_torch.tools.bench import REPLACE_RATIO, build_step
+
+    names = []
+
+    def loss_and_grads():
+        step, state, batch = build_step(batch_size=2, device=DEVICE)
+        params = {id(p): n for n, p in state["model"].named_parameters()}
+        names[:] = [params[id(p)] for p in state["opt_state"].params]
+        loss, grads = step.loss_and_grads(state, batch,
+                                          torch.Generator(device=DEVICE).manual_seed(SEED),
+                                          REPLACE_RATIO)
+        grads = [torch.zeros_like(p) if g is None else g.detach()
+                 for p, g in zip(state["opt_state"].params, grads)]
+        return loss.detach(), {}, grads
+
+    check, counted = grads_check(loss_and_grads, plain_modularity, names)
+    check["launches"] = only_launched(counted)
+    torch.cuda.empty_cache()
+    require(counted["modularity_deg"] == counted["modularity_combined"] == 1, counted)
+    require(check["loss_rel"] <= STEP_TOL and check["grad_rel"] <= STEP_TOL,
+            f"bench step through K4/K5 vs the plain passes: {check}")
+    return check
+
+
+def phase_bench_tools(card: str, tmp: str):
+    """The port's bench tools once each on the card (in process, at short
+    settings): ``bench`` at batch 8 (full width), ``ab_step --knob pinv``,
+    ``bench_anatomy``, ``bench_flash --check`` at n 1 024 then timed at the
+    default envelope, ``bench_pinv --check`` at the three Nyström shapes and
+    ``bench_vit --stage device`` at batch 32, fp32 and bf16; with
+    :func:`bench_step_check`.  Returns the row and the launches of each
+    kernel per step or call of the tools that ran it."""
+    import torch
+
+    from imp_torch.tools import ab_step, bench, bench_anatomy, bench_flash, bench_pinv, bench_vit
+
+    row = {"phase": "bench_tools", "card": card, "check_b2": bench_step_check()}
+    # the JAX package's self-recorded baseline (0 bytes here) stays as it is
+    jax_baseline = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bench_baseline.json")
+    def stamp():
+        st = os.stat(jax_baseline) if os.path.exists(jax_baseline) else None
+        return st and (st.st_size, st.st_mtime_ns)
+
+    stamped = stamp()
+    baseline = os.path.join(tmp, "output", "bench_torch_baseline.json")
+    result, _ = quiet(bench.main, ["--batch-size", "8", "--device", DEVICE,
+                                   "--baseline", baseline])
+    missing = [k for k in BENCH_FIELDS if k not in result]
+    require(not missing, f"bench's line lacks {missing}")
+    per_step = result["launches_per_step"]
+    require(per_step["modularity_deg"] == per_step["modularity_combined"] == 1.0
+            and per_step["pinv_fwd"] == per_step["pinv_bwd"] == 0.0, per_step)
+    require(result["loss_finite"] and result["vs_baseline"] == 1.0
+            and os.path.exists(baseline), result)
+    require(stamp() == stamped, "bench_baseline.json was touched")
+    row["bench"] = result
+    torch.cuda.empty_cache()
+
+    result, lines = quiet(ab_step.main, ["--knob", "pinv", "--slots", "2", "--iters", "5",
+                                         "--device", DEVICE])
+    fused, chain = (result["arms"][a]["launches_per_step"] for a in ("A", "B"))
+    require(fused["pinv_fwd"] == fused["pinv_bwd"] == 6.0
+            and chain["pinv_fwd"] == chain["pinv_bwd"] == 0.0, result)
+    row["ab_step"] = {**result, "lines": lines}
+    torch.cuda.empty_cache()
+
+    result, _ = quiet(bench_anatomy.main, ["--iters", "5", "--device", DEVICE])
+    require(all(r["finite"] and r["device_busy_ms"] is not None
+                for r in result["sections"].values()), result)
+    anatomy = {s: result["sections"][s]["launches_per_call"] for s in BENCH_ANATOMY_K4_K5}
+    require(all(a == {"modularity_deg": 1.0, "modularity_combined": 1.0}
+                for a in anatomy.values()), anatomy)
+    row["bench_anatomy"] = result
+    torch.cuda.empty_cache()
+
+    checked, _ = quiet(bench_flash.main, ["--n", "1024", "--check", "--iters", "3",
+                                          "--device", DEVICE])
+    fp32 = checked["check"]["fp32"]
+    require(max(fp32[k] for k in ("fwd_rel_err", "dq_rel_err", "dk_rel_err", "dv_rel_err"))
+            <= KERNEL_TOL, checked)
+    for prec, entry in (("fp32", ""), ("bf16", "_bf16")):
+        c = checked["check"][prec]
+        require(c["launches_per_forward"] == {"flash_fwd": 1, "flash_bwd_dq": 0,
+                                              "flash_bwd_dkv": 0}
+                and c["launches_per_backward"] == {"flash_fwd": 0, "flash_bwd_dq": 1,
+                                                   "flash_bwd_dkv": 1}, (entry, c))
+    timed, _ = quiet(bench_flash.main, ["--precisions", "fp32,bf16", "--device", DEVICE])
+    require(all(t["launches_per_call"] == {"flash_fwd": 1.0, "flash_bwd_dq": 0.0,
+                                           "flash_bwd_dkv": 0.0}
+                for t in timed["timed"].values()), timed)
+    row["bench_flash"] = {"check_n1024": checked, "timed": timed}
+    torch.cuda.empty_cache()
+
+    row["bench_pinv"] = []
+    for g, m in BENCH_PINV_SHAPES:  # raises where a bound of --check is missed
+        result, _ = quiet(bench_pinv.main, ["--check", "--g", str(g), "--m", str(m),
+                                            "--device", DEVICE])
+        fused = result["check"]["launches"]["fused"]
+        require(fused == {"per_forward": {"pinv_fwd": 1, "pinv_bwd": 0},
+                          "per_backward": {"pinv_fwd": 0, "pinv_bwd": 1}}, result)
+        row["bench_pinv"].append(result)
+    torch.cuda.empty_cache()
+
+    row["bench_vit"] = [quiet(bench_vit.main, ["--stage", "device", "--batch-size", "32",
+                                               "--prec", prec, "--iters", "10",
+                                               "--device", DEVICE])[0]
+                        for prec in ("fp32", "bf16")]
+    emit(row)
+    torch.cuda.empty_cache()
+    # every count below is one this run counted
+    launches = {
+        n: {**{f"bench_flash --check n 1024 {prec} (per {way})":
+               checked["check"][prec][f"launches_per_{way}"][n]
+               for prec in ("fp32", "bf16") for way in ("forward", "backward")},
+            **{f"bench_flash {prec} (per timed forward)": timed["timed"][prec]["launches_per_call"][n]
+               for prec in ("fp32", "bf16")}}
+        for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    for k in ("modularity_deg", "modularity_combined"):
+        launches[k] = {"bench b8 (per step)": row["bench"]["launches_per_step"][k],
+                       **{f"bench_anatomy {s} (per call)": anatomy[s][k]
+                          for s in BENCH_ANATOMY_K4_K5}}
+    for k in ("pinv_fwd", "pinv_bwd"):
+        launches[k] = {"ab_step --knob pinv, fused arm (per step)":
+                       row["ab_step"]["arms"]["A"]["launches_per_step"][k],
+                       **{f"bench_pinv --check ({r['g']}, {r['m']}) (per {way})":
+                          r["check"]["launches"]["fused"][f"per_{way}"][k]
+                          for r in row["bench_pinv"] for way in ("forward", "backward")}}
+    return row, launches
 
 
 def greedy_pairs(model, args):
@@ -2453,7 +2448,7 @@ def phase_train_step_transmil(card: str, root: str, out: str, attention: str = "
         "tokens": int(cfg.DATASET.BAG_PAD) + 1,
     }
     if flash:
-        timing = time_step(step, FLASH_KERNEL_NAMES)
+        timing = time_step(step, FLASH_KERNEL_NAMES, timed=STEP_TIMED)
         row.update(**timing, slides_per_s=b / (timing["step_ms_median"] / 1e3))
         require(timing["loss_finite"], row)
     else:
@@ -3037,7 +3032,7 @@ def phase_train_step_cmta(card: str, root: str, out: str):
         row = {"check": check, "batch": b, "bag_valid": int(batch["img_mask"].sum()),
                "tokens": int(trainer.cfg.DATASET.BAG_PAD) + 1}
         if flash:
-            timing = time_step(step, FLASH_KERNEL_NAMES)
+            timing = time_step(step, FLASH_KERNEL_NAMES, timed=STEP_TIMED)
             row.update(**timing, slides_per_s=b / (timing["step_ms_median"] / 1e3))
             require(timing["loss_finite"], row)
         else:
@@ -3782,7 +3777,8 @@ def phase_flash_bf16(card: str, build_report: dict):
 def phase_trace_sessions(card: str):
     """What the traced windows of the run lost: per window the primer
     records missing from its trace, and the windows traced again because
-    they lost records of a timed kernel past the primers (:func:`traced`)."""
+    they lost records of a timed kernel past the primers
+    (``imp_torch.utils.profiling.traced``)."""
     lost = [launched - seen for launched, seen in TRACE_SESSIONS]
     row = {"phase": "trace_sessions", "card": card, "sessions": len(lost),
            "primers": TRACE_PRIMERS, "retraced": sum(1 for _, seen in TRACE_SESSIONS if not seen),
@@ -5352,6 +5348,7 @@ def main() -> int:
         root = make_train_tree(os.path.join(tmp, "tree"))
         _, train_counts = clocked("train", phase_train, card, root, os.path.join(tmp, "train"))
         clocked("train_step", phase_train_step, card, root, os.path.join(tmp, "train_step"))
+        _, bench_launches = clocked("bench_tools", phase_bench_tools, card, tmp)
         _, umeml_counts = clocked("train_umeml", phase_train_umeml, card, root,
                                   os.path.join(tmp, "umeml"))
         clocked("train_step_umeml", phase_train_step_umeml, card, root,
@@ -5520,7 +5517,7 @@ def main() -> int:
             "protocol_launches": protocol_counts[name],
         }
 
-    emit({"kernels": [
+    entries = [
         {
             "name": "flash_fwd", **KERNEL_INFO["flash_fwd"],
             "launches": counts["flash_fwd"],
@@ -5540,7 +5537,10 @@ def main() -> int:
         modularity_entry("modularity_deg"),
         modularity_entry("modularity_combined"),
         *(pinv_entry(n) for n in ("pinv_fwd", "pinv_bwd")),
-    ]})
+    ]
+    for entry in entries:  # launches per step or call of the bench tools (bench_tools)
+        entry["bench_launches"] = bench_launches[entry["name"]]
+    emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

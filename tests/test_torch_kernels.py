@@ -486,7 +486,9 @@ def test_pinv_gate_runs_the_chain_on_card():
 # package rules: no JAX anywhere in the port or its smoke script
 # ---------------------------------------------------------------------------
 
-_FORBIDDEN = ("jax", "flax", "optax", "triton", "imp_tpu")
+#: ``bench`` and ``clip_feature`` are the JAX package's root bench and the
+#: module its tools import from ``tools/``: the port has its own of each
+_FORBIDDEN = ("jax", "flax", "optax", "triton", "imp_tpu", "bench", "clip_feature")
 
 
 def _imported_modules(path: Path):
@@ -523,6 +525,9 @@ def test_port_imports_with_jax_blocked():
         "import imp_torch.data.labeling, imp_torch.data.xlsx, imp_torch.ops.extras\n"
         "import imp_torch.tools.kfold, imp_torch.tools.label_gen\n"
         "import imp_torch.tools.generate_test_labels\n"
+        "import imp_torch.utils.profiling, imp_torch.tools.bench, imp_torch.tools.ab_step\n"
+        "import imp_torch.tools.bench_anatomy, imp_torch.tools.bench_flash\n"
+        "import imp_torch.tools.bench_pinv, imp_torch.tools.bench_vit\n"
         "from imp_torch.config import get_cfg_default\n"
         "cfg = get_cfg_default(); cfg.TPU.ATTENTION = 'flash'; cfg.freeze()\n"
         "print('ok')\n"
