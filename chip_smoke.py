@@ -3477,6 +3477,9 @@ BF16_MAIN_SHAPE = "transmil_n10001_d64"
 #: the bf16 entries' launch counters and the trace symbols of their kernels
 BF16_ENTRIES = {"flash_fwd": "flash_fwd_bf16", "flash_bwd_dq": "flash_bwd_dq_bf16",
                 "flash_bwd_dkv": "flash_bwd_dkv_bf16"}
+#: the CUDA kernels of K2's and K3's bf16 entries (their trace rows also
+#: hold BWD_KERNEL_SYMBOL's names)
+BF16_SYMBOL = {"flash_bwd_dq": "dq_kernel_bf16", "flash_bwd_dkv": "dkv_kernel_bf16"}
 BF16_GATE = 2e-2  # a bf16 step through the kernels vs through the plain versions
 BF16_MARGIN = 1e-4  # ... and its distance from the fp32 plain step: 2x the plain's + this
 
@@ -3642,16 +3645,46 @@ def phase_protocol(card: str, root: str, out: str):
     return row, total
 
 
+def bf16_float64_gate(kernel, fp32_entry, exact, names) -> dict:
+    """Gate (c) of K2/K3's bf16 entries: each gradient's max-abs distance
+    from ``exact`` (a float64 replay of the plain version on the same bf16
+    operands) at most twice that of the fp32 entries on ``.float()`` copies
+    of those operands.  Per gradient both distances and their ratio, and
+    whether all passed."""
+    rows = {}
+    for n, a, w, x in zip(names, kernel, fp32_entry, exact):
+        got, ref = (a.double() - x).abs().max().item(), (w.double() - x).abs().max().item()
+        rows[n] = {"kernel": got, "fp32_entry": ref, "ratio": got / max(ref, 1e-300)}
+    return {"ok": all(r["kernel"] <= 2 * r["fp32_entry"] for r in rows.values()),
+            "limit": "2x the fp32 entry", **rows}
+
+
+def ptxas_of(report: dict, source: str, symbol: str) -> list:
+    """The :func:`ptxas_lines` of the kernels of ``source`` whose mangled
+    names hold ``symbol``."""
+    out, mine = [], False
+    for line in ptxas_lines(report, source):
+        if "Compiling entry" in line:
+            mine = symbol in line
+        if mine:
+            out.append(line)
+    return out
+
+
 def phase_flash_bf16(card: str, build_report: dict):
     """K1-K3's bf16 entries (``TRAINER.PREC`` bf16: q, k, v in bf16, the rest
     and the outputs fp32) at TransMIL's bag, CMTA's masked bag and
-    UMEML_GAN's batch-8 sequences: (1) the same bits as the fp32 entries on
-    ``.float()`` copies of the same operands (the entries widen exactly as
-    they stage), (2) within ``KERNEL_TOL`` of the plain versions; timed
-    beside their bounds (:func:`flash_bound_ms`: each product at the rate
-    its operands need, q, k, v at 2 bytes), the plain versions, SDPA on
-    the widened operands (the same function) and SDPA in bf16 (not the
-    same function: P·V in bf16)."""
+    UMEML_GAN's batch-8 sequences.  K1's widens q, k, v exactly as it stages
+    them: O and lse are the fp32 entry's bits on ``.float()`` copies.  K2's
+    and K3's keep them in bf16 (Q·Kᵀ in one bf16 pass, the products with one
+    bf16 operand in two TF32 passes), so dq, dk and dv are held instead (a)
+    within ``KERNEL_TOL`` of the plain versions, (b) to the same bits on a
+    second launch, (c) no farther from a float64 replay than twice the fp32
+    entries (:func:`bf16_float64_gate`).  Timed beside their bounds
+    (:func:`flash_bound_ms`: each product at the rate its operands need, q,
+    k, v at 2 bytes), the fp32 entries on the widened operands (K2, K3),
+    the plain versions, SDPA on the widened operands (the same function)
+    and SDPA in bf16 (not the same function: P·V in bf16)."""
     import torch
     import torch.nn.functional as F
 
@@ -3659,7 +3692,7 @@ def phase_flash_bf16(card: str, build_report: dict):
     from imp_torch.ops.flash_attention import (
         NEG_INF, flash_attention_bwd, flash_attention_bwd_dkv_reference,
         flash_attention_bwd_dq_reference, flash_attention_bwd_reference, flash_attention_fwd,
-        flash_attention_reference, flash_fwd_layout,
+        flash_attention_reference, flash_bwd_layout, flash_fwd_layout,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3692,17 +3725,19 @@ def phase_flash_bf16(card: str, build_report: dict):
             grads_w = flash_attention_bwd(*wide, bias, do, lse_w, delta)
             torch.cuda.synchronize()
             launched = only_launched(kernels.launches())
+            again = flash_attention_bwd(*args)
             o_ref, lse_ref = flash_attention_reference(q, k, v, bias)
             ref = flash_attention_bwd_reference(*args)
-            same_bits = {"o": torch.equal(o, o_w), "lse": torch.equal(lse, lse_w),
-                         **{gn: torch.equal(a, w) for gn, a, w in zip(("dq", "dk", "dv"), grads,
-                                                                      grads_w)}}
+            exact = flash_attention_bwd_reference(*(t.double() for t in args))
+            same_bits = {"o": torch.equal(o, o_w), "lse": torch.equal(lse, lse_w)}
+            twice = {gn: torch.equal(a, r) for gn, a, r in zip(("dq", "dk", "dv"), grads, again)}
+            f64 = bf16_float64_gate(grads, grads_w, exact, ("dq", "dk", "dv"))
             errs = {"flash_fwd": max((o - o_ref).abs().max().item(),
                                      (lse[has_key] - lse_ref[has_key]).abs().max().item()),
                     "flash_bwd_dq": rel_err(grads[0], ref[0]),
                     "flash_bwd_dkv": max(rel_err(a, r) for a, r in zip(grads[1:], ref[1:]))}
             dtypes = [str(t.dtype) for t in (o, lse, *grads)]
-            del grads, grads_w, ref, o_ref
+            del grads, grads_w, again, ref, exact, o_ref
             torch.cuda.empty_cache()
 
             def fwd():
@@ -3710,6 +3745,9 @@ def phase_flash_bf16(card: str, build_report: dict):
 
             def bwd():
                 return flash_attention_bwd(*args)
+
+            def bwd_wide():
+                return flash_attention_bwd(*wide, bias, do, lse_w, delta)
 
             fwd_times = {"ms": cuda_ms(fwd, iters),
                          "kernel_device_ms": device_ms(fwd, "flash_fwd_kernel", min(iters, 20)),
@@ -3725,7 +3763,8 @@ def phase_flash_bf16(card: str, build_report: dict):
                     "ms": cuda_ms(bwd, bwd_iters),
                     "plain_ms": cuda_ms(lambda: flash_attention_bwd_reference(*args),
                                         min(bwd_iters, 3), warmup=1)}
-            bwd_times = {kn: (device_ms(bwd, sym, iters=min(bwd_iters, 20)),
+            bwd_times = {kn: (device_ms(bwd, BF16_SYMBOL[kn], iters=min(bwd_iters, 20)),
+                              device_ms(bwd_wide, sym, iters=min(bwd_iters, 20)),
                               cuda_ms(lambda: plain[kn](*args), min(bwd_iters, 3), warmup=1))
                          for kn, sym in BWD_KERNEL_SYMBOL.items()}
         pair["library_ms"], pair["library_kernel"] = sdpa_bwd_ms(*wide, bias, do,
@@ -3735,10 +3774,12 @@ def phase_flash_bf16(card: str, build_report: dict):
         pair["library_bf16_note"] = "not the same function: P·V and the gradients in bf16"
         fb = flash_fwd_bounds(b, h, n, d, valid, "bf16")
         bb = flash_bwd_bounds(b, h, n, d, valid, "bf16")
+        layout = flash_bwd_layout(d)["bf16"]
         common = {"phase": "kernel_flash_bf16", "shape": name, "card": card, "B": b, "H": h,
                   "N": n, "d": d, "valid": valid, "mask": specs, "launched": launched,
-                  "same_bits_as_f32_entry": same_bits, "out_dtypes": dtypes, "tol": KERNEL_TOL}
+                  "out_dtypes": dtypes, "tol": KERNEL_TOL}
         row = {**common, "kernel": "flash_fwd", "entry": "imp_flash_fwd_bf16",
+               "same_bits_as_f32_entry": same_bits,
                "max_abs_err": errs["flash_fwd"], **fwd_times, "bound_ms": fb["bound_ms"],
                "bound_by": fb["bound_by"],
                "library_bf16_note": "not the same function: P·V in bf16",
@@ -3747,19 +3788,26 @@ def phase_flash_bf16(card: str, build_report: dict):
                "ptxas": ptxas_lines(build_report, "flash_fwd.cu")}
         emit(row)
         rows[("flash_fwd", name)] = row
-        for kname, (ms, plain_ms) in bwd_times.items():
-            require(ms is not None, f"the trace holds no device time for {kname} bf16 at {name}")
+        for kname, (ms, fp32_ms, plain_ms) in bwd_times.items():
+            require(ms is not None and fp32_ms is not None,
+                    f"the trace holds no device time for {kname} at {name}")
             bound, bound_by = bb[kname]
             row = {**common, "kernel": kname, "entry": f"imp_{kname}_bf16",
-                   "max_abs_err": errs[kname], "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
-                   "share_of_bound": bound / ms, "pair": pair,
-                   "ptxas": ptxas_lines(build_report, "flash_bwd.cu")}
+                   "same_bits_twice": twice, "float64": f64,
+                   "max_abs_err": errs[kname], "ms": ms, "fp32_entry_ms": fp32_ms,
+                   "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound,
+                   "bound_by": bound_by, "share_of_bound": bound / ms, "pair": pair,
+                   "dynamic_smem_bytes": layout[kname],
+                   "ptxas": ptxas_of(build_report, "flash_bwd.cu", BF16_SYMBOL[kname])}
             emit(row)
             rows[(kname, name)] = row
         require(all(same_bits.values()),
-                f"bf16 entries differ from the fp32 entries on widened operands at {name}: "
+                f"K1's bf16 entry differs from its fp32 entry on widened operands at {name}: "
                 f"{same_bits}")
+        require(all(twice.values()), f"K2/K3's bf16 entries differ between launches at {name}: "
+                f"{twice}")
+        require(f64["ok"], f"K2/K3's bf16 entries are farther from float64 than twice the "
+                f"fp32 entries at {name}: {f64}")
         require(max(errs.values()) <= KERNEL_TOL,
                 f"bf16 entries disagree with the plain versions at {name}: {errs}")
         require(launched == {"flash_fwd": 1, "flash_fwd_bf16": 1, "flash_bwd_dq": 1,
@@ -5429,21 +5477,33 @@ def main() -> int:
 
     def bf16_entry(name):
         """The kernel's bf16 entry: its launches in the bf16 CLI runs
-        (UMEML_GAN and CMTA) and its times at TransMIL's bag."""
+        (UMEML_GAN and CMTA) and its times at TransMIL's bag; K1's bits
+        against its fp32 entry, K2's and K3's gates (b) and (c), their times
+        beside the fp32 entries', shares of the bound and ptxas lines."""
         main = bf16_rows[(name, BF16_MAIN_SHAPE)]
-        return {"entry": main["entry"], "launches": bf16_counts[BF16_ENTRIES[name]],
-                "shape": BF16_MAIN_SHAPE, "ms": main["ms"], "plain_ms": main["plain_ms"],
-                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                "library_ms": main["library_ms"] if name == "flash_fwd"
-                else main["pair"]["library_ms"],
-                **({"pair": main["pair"]} if "pair" in main else {
-                    "library_bf16_ms": main["library_bf16_ms"],
-                    "library_bf16_note": main["library_bf16_note"]}),
-                "same_bits_as_f32_entry": all(
-                    all(r["same_bits_as_f32_entry"].values())
-                    for (k, _), r in bf16_rows.items() if k == name),
-                "max_abs_err": max(r["max_abs_err"] for (k, _), r in bf16_rows.items()
-                                   if k == name)}
+        mine = [r for (k, _), r in bf16_rows.items() if k == name]
+        entry = {"entry": main["entry"], "launches": bf16_counts[BF16_ENTRIES[name]],
+                 "shape": BF16_MAIN_SHAPE, "ms": main["ms"], "plain_ms": main["plain_ms"],
+                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                 "share_of_bound": main["share_of_bound"],
+                 "library_ms": main["library_ms"] if name == "flash_fwd"
+                 else main["pair"]["library_ms"],
+                 "max_abs_err": max(r["max_abs_err"] for r in mine)}
+        if name == "flash_fwd":
+            return {**entry, "library_bf16_ms": main["library_bf16_ms"],
+                    "library_bf16_note": main["library_bf16_note"],
+                    "same_bits_as_f32_entry": all(all(r["same_bits_as_f32_entry"].values())
+                                                  for r in mine)}
+        return {**entry, "pair": main["pair"], "fp32_entry_ms": main["fp32_entry_ms"],
+                "by_shape": {r["shape"]: {"ms": r["ms"], "fp32_entry_ms": r["fp32_entry_ms"],
+                                          "bound_ms": r["bound_ms"],
+                                          "share_of_bound": r["share_of_bound"]}
+                             for r in mine},
+                "same_bits_twice": all(all(r["same_bits_twice"].values()) for r in mine),
+                "float64_worst_ratio": max(v["ratio"] for r in mine
+                                           for v in r["float64"].values()
+                                           if isinstance(v, dict)),
+                "dynamic_smem_bytes": main["dynamic_smem_bytes"], "ptxas": main["ptxas"]}
 
     def partial_entry(name, row=None, runs=("transmil_ring", "transmil_gather")):
         """The kernel (or its bf16 entry: ``row`` the bf16 phase 29) under

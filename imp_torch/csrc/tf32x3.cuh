@@ -11,9 +11,10 @@
 //    accumulate), which keeps fp32 accuracy; the fragment loaders split
 //    as they load from row-major shared tiles padded to D + kPad floats.
 //  * cp.async staging of kTile-row tiles and vectors (zero past the end);
-//    bf16 rows (K1-K3's bf16 entries) are read by plain loads and widened to
+//    bf16 rows (K1's bf16 entry) are read by plain loads and widened to
 //    fp32 as they are staged, so the shared tiles and every product are
-//    those of the fp32 entries.
+//    those of the fp32 entry. K2/K3's bf16 entries keep bf16 tiles
+//    (bf16mma.cuh).
 //  * the masked-key-tile vote: a bias at or below kMaskedBelow is a masked key.
 #pragma once
 

@@ -55,15 +55,17 @@ KERNELS = {
         "flash_bwd.cu",
         {"imp_flash_bwd_dkv_f32": [_P] * 9 + [_I] * 5 + [_P]},
     ),
-    # K1-K3's bf16-operand entries (TRAINER.PREC bf16): the same kernels and
-    # libraries, each entry counted apart
+    # K1-K3's bf16-operand entries (TRAINER.PREC bf16): the same libraries,
+    # each entry counted apart (K1's widens to the fp32 kernel; K2's and
+    # K3's are kernels of their own, dq_kernel_bf16 and dkv_kernel_bf16)
     "flash_fwd_bf16": (
         "flash_fwd.cu",
         {"imp_flash_fwd_bf16": [_P] * 6 + [_I] * 5 + [_P]},
     ),
     "flash_bwd_dq_bf16": (
         "flash_bwd.cu",
-        {"imp_flash_bwd_dq_bf16": [_P] * 8 + [_I] * 5 + [_P]},
+        {"imp_flash_bwd_dq_bf16": [_P] * 8 + [_I] * 5 + [_P],
+         "imp_flash_bwd_layout_bf16": [_I] + [ctypes.POINTER(_I)] * 3},
     ),
     "flash_bwd_dkv_bf16": (
         "flash_bwd.cu",

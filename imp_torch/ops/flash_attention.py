@@ -43,9 +43,13 @@ bf16 precision policy; bias, lse, delta and dO are float32, and O, lse, dq,
 dk and dv come out float32 in both cases: the TPU kernels' contract under
 ``mxu_precision="fp32"``.  A bf16 q, k, v goes to the kernels' bf16 entries
 (``imp_flash_*_bf16``, counted apart as ``flash_fwd_bf16``,
-``flash_bwd_dq_bf16`` and ``flash_bwd_dkv_bf16``), which widen the
-operands exactly as they stage them and so give the fp32 entries' bits on
-widened copies; the plain versions widen them the same way.
+``flash_bwd_dq_bf16`` and ``flash_bwd_dkv_bf16``).  K1's widens the
+operands exactly as it stages them and so gives the fp32 entry's bits on
+widened copies.  K2's and K3's keep q, k and v in bf16 and run each
+product in the passes its operands need (Q·Kᵀ in one bf16 pass, a product
+with one bf16 operand in two TF32 passes), so they sum in another order
+than the fp32 entries: they are held within 1e-4 of the plain versions,
+which widen the operands, and to a float64 replay.
 :func:`flash_attention` and :class:`FlashAttention` return O and the
 gradients in the operands' dtype, as the JAX ``flash_attention`` and its
 custom VJP do, and form delta from the float32 O.
@@ -302,15 +306,21 @@ def flash_bwd_layout(d: int) -> dict:
     """K2/K3's launch layout at head width ``d``, as ``flash_bwd.cu`` sets
     it: ``tile``, the rows a CTA owns and sweeps per step (masked keys are
     skipped, or zero-filled, a tile at a time), and each kernel's dynamic
-    shared memory in bytes.  Builds the kernels' library at first use."""
+    shared memory in bytes; under ``bf16`` the same of the bf16 entries'
+    kernels.  Builds the kernels' library at first use."""
     from ..kernels import load
 
-    tile, dq_smem, dkv_smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = load("flash_bwd_dq").imp_flash_bwd_layout(
-        d, ctypes.byref(tile), ctypes.byref(dq_smem), ctypes.byref(dkv_smem))
-    if err:
-        raise ValueError(f"flash_bwd has no layout for d = {d}: cudaError {err}")
-    return {"tile": tile.value, "flash_bwd_dq": dq_smem.value, "flash_bwd_dkv": dkv_smem.value}
+    layout = {}
+    for name, entry in (("flash_bwd_dq", "imp_flash_bwd_layout"),
+                        ("flash_bwd_dq_bf16", "imp_flash_bwd_layout_bf16")):
+        tile, dq_smem, dkv_smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        err = getattr(load(name), entry)(d, ctypes.byref(tile), ctypes.byref(dq_smem),
+                                         ctypes.byref(dkv_smem))
+        if err:
+            raise ValueError(f"flash_bwd has no {entry} for d = {d}: cudaError {err}")
+        layout[name] = {"tile": tile.value, "flash_bwd_dq": dq_smem.value,
+                        "flash_bwd_dkv": dkv_smem.value}
+    return {**layout["flash_bwd_dq"], "bf16": layout["flash_bwd_dq_bf16"]}
 
 
 def _mask_bias(mask: Optional[torch.Tensor], b: int, nk: int, device) -> torch.Tensor:

@@ -17,7 +17,11 @@ flash attention takes its dense fallback.
 * a model of the Hopper kernels' numerics (every tile product in 3xTF32,
   operands cut to TF32 by integer bit operations) against the JAX backward:
   within 1e-5 (~1e-6 measured at d 64, 384 keys, one slide masked past key
-  250), while one TF32 pass per product misses the 1e-4 gate (~6-8e-4).
+  250), while one TF32 pass per product misses the 1e-4 gate (~6-8e-4);
+  and one of the bf16 entries' pass schedule (Q·Kᵀ one bf16 pass, a
+  product with one bf16 operand two TF32 passes, Pᵀ·dO 3xTF32) on bf16
+  q, k, v: within 1e-5, while dropping the small pass of any one two-pass
+  product misses 1e-4.
 
 Masks keep a valid key in every row (60 and 96 of 96): a fully masked row
 follows each side's own contract (see ``imp_torch/ops/flash_attention.py``).
@@ -225,12 +229,14 @@ def test_tf32_split_model_of_the_backward(passes):
 
 
 def test_tf32_split_of_bf16_operands_has_zero_low_parts():
-    """K1-K3's bf16 entries widen q, k, v to fp32 and run the fp32 entries'
+    """K1's bf16 entry widens q, k, v to fp32 and runs the fp32 entry's
     3xTF32 products.  A bf16 value (8 significant bits) is exact in TF32
     (11), so its split is big = x, small = 0: the two correction passes
     add exact zeros and the three-pass product equals one TF32 pass bit for
-    bit, on the products of the backward's model above.  (Using that for
-    speed, one pass for such operands, is later work: ROADMAP §B item 3.)"""
+    bit, on the products of the backward's model above.  K2's and K3's bf16
+    entries use that for speed: the products with one bf16 operand drop
+    the zero pass (two passes), Q·Kᵀ is one bf16 pass
+    (:func:`test_bf16_pass_model_of_the_backward`); K1's is the next."""
     rng = np.random.default_rng(9)
     x = torch.from_numpy(rng.normal(size=(4, 64, 64)).astype(np.float32)).bfloat16().float()
     big = _tf32(x)
@@ -243,6 +249,91 @@ def test_tf32_split_of_bf16_operands_has_zero_low_parts():
     # an fp32 operand has a nonzero low part: there the passes differ
     xf = torch.from_numpy(rng.normal(size=(64, 64)).astype(np.float32))
     assert torch.count_nonzero(xf - _tf32(xf)) > 0
+
+
+def _mm_2xtf32(a, b):
+    """a @ b as K2/K3's bf16 entries form a product of an fp32 operand ``a``
+    and a bf16 one ``b`` (exact in TF32): a's big and small halves (the
+    small one truncated by the tensor core) times b, summed in fp32."""
+    ab = _tf32(a)
+    return _tf32(a - ab, nearest=False) @ b + ab @ b
+
+
+def _mm_big_only(a, b):
+    """_mm_2xtf32 without the small pass: one TF32 pass of ``a``."""
+    return _tf32(a) @ b
+
+
+#: the products of K2/K3's bf16 entries with one bf16 operand (the fp32
+#: operand first), each in two TF32 passes
+TWO_PASS_PRODUCTS = ("dO·Vᵀ", "dS·K", "dSᵀ·Q")
+
+
+def _bf16_inputs(d, seed=10):
+    """bf16 q (scaled in fp32, then rounded), k, v as float32 tensors of their
+    exact values, fp32 dO, the mask of slide 1 past key 250, and the row
+    statistics of the plain forward."""
+    b, h, n = 2, 4, 384
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, h, n, d)).astype(np.float32)
+                                * scale).bfloat16().float()
+               for scale in (d**-0.5, 1.0, 1.0))
+    do = _t(rng.normal(size=(b, h, n, d)))
+    mask = np.arange(n)[None, :] < np.array([n, 250])[:, None]
+    bias = _t(np.where(mask, 0.0, NEG_INF))
+    o, lse = flash_attention_reference(q, k, v, bias)
+    return q, k, v, mask, bias, do, lse, (do * o).sum(-1)
+
+
+def _bf16_pass_model(q, k, v, bias, do, lse, delta, drop=None):
+    """K2/K3's bf16 entries' arithmetic: S = Q·Kᵀ as exact products of bf16
+    values summed in fp32 (one bf16 pass), the products with one bf16
+    operand by :func:`_mm_2xtf32` (``drop``: that one by
+    :func:`_mm_big_only`), Pᵀ·dO in 3xTF32.  Returns (dq, dk, dv)."""
+    mm = {name: _mm_big_only if name == drop else _mm_2xtf32 for name in TWO_PASS_PRODUCTS}
+    p = torch.exp(q @ k.transpose(-1, -2) + bias[:, None, None, :] - lse[..., None])
+    ds = p * (mm["dO·Vᵀ"](do, v.transpose(-1, -2)) - delta[..., None])
+    return (mm["dS·K"](ds, k), mm["dSᵀ·Q"](ds.transpose(-1, -2), q),
+            _mm_3xtf32(p.transpose(-1, -2), do))
+
+
+def _errs_vs_jax(got, q, k, v, mask, do, lse, delta):
+    """Norm-wise relative distance of each of (dq, dk, dv) from imp_tpu's
+    flash_attention_partial_bwd at mxu_precision fp32 on bf16 q, k, v."""
+    jq, jk, jv = (jnp.asarray(t.numpy()).astype(jnp.bfloat16) for t in (q, k, v))
+    want = jflash.flash_attention_partial_bwd(
+        jq, jk, jv, jnp.asarray(mask), jnp.asarray(do.numpy()), jnp.asarray(lse.numpy()),
+        jnp.asarray(delta.numpy()), mxu_precision="fp32")
+    errs = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = np.asarray(w, np.float32)
+        errs[name] = np.abs(g.numpy() - w).max() / np.abs(w).max()
+    return errs
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_bf16_pass_model_of_the_backward(d):
+    """The numerics of K2/K3's bf16 entries modelled on the CPU
+    (:func:`_bf16_pass_model`: Q·Kᵀ in one bf16 pass, dO·Vᵀ, dS·K and
+    dSᵀ·Q in two TF32 passes, Pᵀ·dO in 3xTF32) stay within 1e-5 of the JAX
+    backward on the same bf16 q, k, v (norm-wise; 384 keys, slide 1 masked
+    past key 250).  Like the 3xTF32 model above, it documents the route and
+    guards no kernel: the kernels are held by the card gates."""
+    q, k, v, mask, bias, do, lse, delta = _bf16_inputs(d)
+    errs = _errs_vs_jax(_bf16_pass_model(q, k, v, bias, do, lse, delta),
+                        q, k, v, mask, do, lse, delta)
+    assert max(errs.values()) <= 1e-5, errs
+
+
+@pytest.mark.parametrize("product", TWO_PASS_PRODUCTS)
+def test_bf16_pass_model_needs_both_passes(product):
+    """Dropping the fp32 operand's small pass in any one of the two-pass
+    products of :func:`_bf16_pass_model` leaves a gradient past the
+    kernels' 1e-4 gate: both passes are needed."""
+    q, k, v, mask, bias, do, lse, delta = _bf16_inputs(64)
+    errs = _errs_vs_jax(_bf16_pass_model(q, k, v, bias, do, lse, delta, drop=product),
+                        q, k, v, mask, do, lse, delta)
+    assert max(errs.values()) > 1e-4, errs
 
 
 def _flash_fwd_model(q, k, v, bias, mm, tile=64):

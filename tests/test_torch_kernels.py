@@ -33,7 +33,7 @@ from imp_torch.ops.flash_attention import (
     flash_fwd_layout,
 )
 
-from chip_smoke import key_valid
+from chip_smoke import bf16_float64_gate, key_valid
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -250,11 +250,15 @@ def test_bf16_operands_take_the_widened_plain_versions_on_cpu():
 @pytest.mark.parametrize("d,lengths", [(32, (1000, 731, 0)), (64, (1000, 731, 1)),
                                        (64, ("tiles", 401))])
 def test_flash_bf16_entries_give_the_f32_entries_bits_on_card(d, lengths):
-    """K1-K3's bf16 entries widen q, k, v exactly as they stage them, so on
-    the card they give the fp32 entries' bits on ``.float()`` copies (O,
-    lse, dq, dk, dv, all fp32), each entry launched once and counted apart;
-    within 1e-4 of the plain versions.  A bf16 tensor never goes to an fp32
-    entry: a mix of dtypes raises."""
+    """K1-K3's bf16 entries on the card, each launched once and counted
+    apart, with fp32 outputs.  K1's widens q, k, v exactly as it stages
+    them, so O and lse are the fp32 entry's bits on ``.float()`` copies.
+    K2's and K3's keep q, k, v in bf16 and run Q·Kᵀ in one bf16 pass, which
+    sums in another order, so dq, dk and dv are held instead (a) within
+    1e-4 of the plain versions, (b) to the same bits on a second launch and
+    (c) no farther from a float64 replay of the plain version than twice the
+    fp32 entries on the ``.float()`` copies.  A bf16 tensor never goes to an
+    fp32 entry: a mix of dtypes raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
     args = _bf16_args(d, lengths, "cuda")
@@ -265,18 +269,21 @@ def test_flash_bf16_entries_give_the_f32_entries_bits_on_card(d, lengths):
         grads = flash_attention_bwd(*args)
         torch.cuda.synchronize()
         after = kernels.launches()
+        again = flash_attention_bwd(*args)
         o_w, lse_w = flash_attention_fwd(*wide[:4])
         grads_w = flash_attention_bwd(*wide)
+        exact = flash_attention_bwd_reference(*(t.double() for t in args))
         torch.cuda.synchronize()
     assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {
         "flash_fwd_bf16": 1, "flash_bwd_dq_bf16": 1, "flash_bwd_dkv_bf16": 1}
     assert torch.equal(o, o_w) and torch.equal(lse, lse_w)
-    for a, b in zip(grads, grads_w):
-        assert a.dtype == torch.float32 and torch.equal(a, b)
     o_ref, _ = flash_attention_reference(*args[:4])
     assert (o - o_ref).abs().max().item() < 1e-4
-    for a, b in zip(grads, flash_attention_bwd_reference(*args)):
-        assert _rel(a, b) < 1e-4
+    for a, b, r in zip(grads, again, flash_attention_bwd_reference(*args)):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+        assert _rel(a, r) < 1e-4
+    gate = bf16_float64_gate(grads, grads_w, exact, ("dq", "dk", "dv"))
+    assert gate["ok"], gate
     with pytest.raises(TypeError, match="q's dtype"):
         flash_attention_fwd(args[0], wide[1], args[2], args[3])
 
